@@ -1,0 +1,234 @@
+"""Plain PyTorch versions of the hot-path kernels.
+
+Ports of ``repro.kernels.ref``: ``cache_probe_ref``, ``probe_allocate_ref``
+and ``gather_blocks_ref`` are the plain versions of the three CUDA kernels
+(the CPU path, and the yardstick the kernels are held against on the card);
+``sq_enqueue_ref`` and ``wfq_drain_ref`` were never Pallas kernels and stay
+plain torch on every device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.ssd import device_of_block
+from repro_torch.utils import mix_hash, segment_rank
+
+
+def gather_blocks_ref(data: torch.Tensor, slots: torch.Tensor,
+                      off: torch.Tensor | None = None) -> torch.Tensor:
+    """data: (num_lines, line_elems); slots: (n,) -> (n, line_elems), or
+    with ``off`` the (n,) elements ``data[slots, off]``; zero where
+    ``slots < 0``."""
+    safe = torch.clamp(slots, min=0).to(torch.int64)
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    if off is not None:
+        return torch.where(slots >= 0, data[safe, off.to(torch.int64)], zero)
+    return torch.where((slots >= 0)[:, None], data[safe], zero)
+
+
+def cache_probe_ref(tags: torch.Tensor, keys: torch.Tensor,
+                    owner: torch.Tensor | None = None, tenant: int = 0):
+    """Tag probe of a raw (num_sets, ways) directory: ``(hit, slot)``, slot
+    -1 on a miss.  With ``owner`` a line only hits when it is ``tenant``'s.
+    Negative keys never hit."""
+    num_sets, ways = tags.shape
+    valid = keys >= 0
+    sets = (mix_hash(torch.where(valid, keys, 0)) % num_sets).to(torch.int64)
+    rows = tags[sets]
+    eq = (rows == keys[:, None]) & valid[:, None]
+    if owner is not None:
+        eq = eq & (owner[sets] == tenant)
+    hit = eq.any(dim=1)
+    way = torch.argmax(eq.to(torch.int32), dim=1)
+    slot = torch.where(hit, sets * ways + way, -1).to(torch.int32)
+    return hit, slot
+
+
+def probe_allocate_ref(tags, owner, refcount, dirty, speculative, clock_hand,
+                       keys, valid, alloc_mask=None, protect_slots=None, *,
+                       tenant=0, way_lo=0, way_hi=None, spec_insert=False,
+                       protect_hits=True):
+    """Fused probe + class-then-clock victim select: the plain version of
+    the ``probe_allocate`` kernel.  Returns ``(hit, hit_slot, way, ok,
+    evicted_key, evicted_dirty)``; allocation outputs are -1 / False on
+    rows with ``ok=False``.  See ``repro.kernels.ref.probe_allocate_ref``.
+    """
+    num_sets, ways = tags.shape
+    way_hi = ways if way_hi is None else way_hi
+    m = keys.shape[0]
+    dev = keys.device
+    sets = (mix_hash(torch.where(valid, keys, 0)) % num_sets).to(torch.int64)
+
+    rows_tag = tags[sets]
+    rows_owner = owner[sets]
+    eq = (rows_tag == keys[:, None]) & valid[:, None] & (rows_owner == tenant)
+    hit = eq.any(dim=1)
+    hway = torch.argmax(eq.to(torch.int32), dim=1)
+    hslot = torch.where(hit, sets * ways + hway, -1).to(torch.int32)
+
+    miss = valid & ~hit
+    if alloc_mask is not None:
+        miss = miss & alloc_mask
+
+    def no_miss():
+        return (torch.full((m,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((m,), dtype=torch.bool, device=dev),
+                torch.full((m,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((m,), dtype=torch.bool, device=dev))
+
+    # Host-side branch in place of the reference's lax.cond (a device
+    # sync): with no miss every victim-select output is masked anyway.
+    if not bool(miss.any()):
+        return (hit, hslot) + no_miss()
+
+    rows_ref = refcount[sets]
+    rows_dirty = dirty[sets]
+    rows_spec = speculative[sets]
+    elig = rows_ref == 0
+    foreign_dirty = (rows_owner != tenant) & (rows_tag >= 0) & rows_dirty
+    elig = elig & ~foreign_dirty
+    warange = torch.arange(ways, dtype=torch.int32, device=dev)
+    if way_lo != 0 or way_hi != ways:
+        elig = elig & ((warange >= way_lo) & (warange < way_hi))[None, :]
+    if spec_insert:
+        elig = elig & ~(rows_spec & (rows_tag >= 0))
+    # one spare entry takes the dropped writes of the reference's
+    # ``.at[].set(mode="drop")``
+    n_lines = num_sets * ways
+    overlay = torch.zeros((n_lines + 1,), dtype=torch.bool, device=dev)
+    if protect_hits:
+        overlay[torch.where(hit, hslot.to(torch.int64), n_lines)] = True
+    if protect_slots is not None:
+        ps = protect_slots.to(torch.int64)
+        overlay[torch.where((ps >= 0) & (ps < n_lines), ps, n_lines)] = True
+    elig = elig & ~overlay[:n_lines].reshape(num_sets, ways)[sets]
+
+    rank = segment_rank(sets.to(torch.int32), miss)
+    hand = clock_hand[sets]
+    clock_pos = torch.remainder(warange[None, :] - hand[:, None], ways)
+    vclass = torch.where(rows_tag < 0, 0,
+                         torch.where(rows_spec, 1, 2)).to(torch.int32)
+    key_w = vclass * ways + clock_pos
+    smaller = key_w[:, None, :] < key_w[:, :, None]
+    eidx = (smaller & elig[:, None, :]).sum(dim=2, dtype=torch.int32)
+    n_elig = elig.sum(dim=1, dtype=torch.int32)
+    sel = elig & (eidx == rank[:, None]) & miss[:, None]
+    ok = miss & (n_elig >= rank + 1)
+    way = torch.argmax(sel.to(torch.int32), dim=1)
+    safe_way = torch.where(ok, way, 0)
+    rows_i = torch.arange(m, device=dev)
+    evicted_key = torch.where(ok, rows_tag[rows_i, safe_way], -1)
+    evicted_dirty = ok & rows_dirty[rows_i, safe_way]
+    return (hit, hslot, torch.where(ok, way, -1).to(torch.int32), ok,
+            evicted_key.to(torch.int32), evicted_dirty)
+
+
+def sq_enqueue_ref(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant,
+                   sq_ticket, sq_tail, sq_head, rr_ptr, dev_enqueued,
+                   keys, dst, is_write, prio, valid, *,
+                   seg_bounds, n_devices, stripe_blocks, tenant):
+    """Fused multi-segment SQ enqueue (see ``repro.kernels.ref``).
+
+    The six ring fields are updated in place (the reference returns new
+    rings).  Returns ``(sq_tail, rr_ptr, queue, vslot, accepted, ticket_id,
+    per_seg)``.
+    """
+    nq, depth = sq_key.shape
+    gsize = nq // n_devices
+    nd = n_devices
+    dev_t = keys.device
+    tail = sq_tail
+    rr = rr_ptr
+    dev_base = dev_enqueued
+    darange = torch.arange(nd, dtype=torch.int32, device=dev_t)
+    q_parts, v_parts, a_parts, t_parts = [], [], [], []
+    n_acc, n_drop, n_db, n_tick = [], [], [], []
+    dev_drop, dev_acc = [], []
+    for (s, e) in seg_bounds:
+        k_s, v_s = keys[s:e], valid[s:e]
+        dev = device_of_block(k_s, nd, stripe_blocks)
+        dev64 = dev.to(torch.int64)
+        onehot = ((dev[:, None] == darange[None, :])
+                  & v_s[:, None]).to(torch.int32)
+        ticket = torch.gather(
+            torch.cumsum(onehot, 0, dtype=torch.int32) - onehot, 1,
+            dev64[:, None])[:, 0]
+        k_dev = onehot.sum(0, dtype=torch.int32)
+        queue = dev * gsize + torch.remainder(rr[dev64] + ticket, gsize)
+        queue64 = queue.to(torch.int64)
+        pos_in_q = torch.div(ticket, gsize, rounding_mode="floor")
+        vslot = tail[queue64] + pos_in_q
+        fits = (vslot - sq_head[queue64]) < depth
+        accepted = v_s & fits
+        acc_i = accepted.to(torch.int32)
+        # bincount in place of the (n, nq) one-hot: integer sums are
+        # order-free
+        per_q = torch.zeros((nq,), dtype=torch.int32, device=dev_t)
+        per_q.index_add_(0, queue64, acc_i)
+        tail = tail + per_q
+        rr = torch.remainder(rr + k_dev, gsize)
+        drops = v_s & ~fits
+        acc_oh = onehot * acc_i[:, None]
+        arank = torch.gather(
+            torch.cumsum(acc_oh, 0, dtype=torch.int32) - acc_oh, 1,
+            dev64[:, None])[:, 0]
+        dev_acc_seg = acc_oh.sum(0, dtype=torch.int32)
+        t_parts.append((dev_base[dev64] + arank).to(torch.int32))
+        dev_base = dev_base + dev_acc_seg
+        q_parts.append(queue.to(torch.int32))
+        v_parts.append(vslot.to(torch.int32))
+        a_parts.append(accepted)
+        n_acc.append(acc_i.sum(dtype=torch.int32))
+        n_drop.append(drops.sum(dtype=torch.int32))
+        n_db.append((per_q > 0).sum(dtype=torch.int32))
+        n_tick.append(k_dev.sum(dtype=torch.int32))
+        dev_drop.append((onehot * drops.to(torch.int32)[:, None])
+                        .sum(0, dtype=torch.int32))
+        dev_acc.append(dev_acc_seg)
+
+    queue = torch.cat(q_parts)
+    vslot = torch.cat(v_parts)
+    accepted = torch.cat(a_parts)
+    ticket_id = torch.cat(t_parts)
+
+    # Host-side branch in place of the reference's lax.cond (a device
+    # sync): a submission that enqueues nothing leaves the rings as they
+    # are.  Accepted (queue, slot) pairs are distinct, so the write order
+    # cannot matter.
+    sel = torch.nonzero(accepted).squeeze(1)
+    if sel.numel() > 0:
+        flat = queue[sel].to(torch.int64) * depth \
+            + torch.remainder(vslot[sel], depth).to(torch.int64)
+        sq_key.view(-1)[flat] = keys[sel]
+        sq_dst.view(-1)[flat] = dst[sel]
+        sq_is_write.view(-1)[flat] = is_write[sel]
+        sq_prio.view(-1)[flat] = prio[sel]
+        sq_tenant.view(-1)[flat] = tenant
+        sq_ticket.view(-1)[flat] = ticket_id[sel]
+    per_seg = dict(
+        n_accepted=torch.stack(n_acc), n_dropped=torch.stack(n_drop),
+        n_doorbells=torch.stack(n_db), n_tickets=torch.stack(n_tick),
+        dev_dropped=torch.stack(dev_drop), dev_accepted=torch.stack(dev_acc))
+    return tail, rr, queue, vslot, accepted, ticket_id, per_seg
+
+
+def wfq_drain_ref(sq_key, sq_is_write, sq_tenant, *, n_devices, n_tenants):
+    """Closed-form drain accounting: ``(count, count_dev, count_tenant,
+    reads_dev, writes_dev)`` as order-free reductions over the pending SQ
+    entries (the fault path waits for a later slice)."""
+    nq, depth = sq_key.shape
+    gsize = nq // n_devices
+    pending = sq_key >= 0
+    count = pending.sum(dtype=torch.int32)
+    count_dev = pending.reshape(n_devices, gsize * depth).sum(
+        1, dtype=torch.int32)
+    writes_dev = (pending & sq_is_write).reshape(
+        n_devices, gsize * depth).sum(1, dtype=torch.int32)
+    reads_dev = count_dev - writes_dev
+    flat_p = pending.reshape(-1)
+    count_tenant = torch.zeros((n_tenants,), dtype=torch.int32,
+                               device=sq_key.device)
+    count_tenant.index_add_(
+        0, torch.where(flat_p, sq_tenant.reshape(-1), 0).to(torch.int64),
+        flat_p.to(torch.int32))
+    return count, count_dev, count_tenant, reads_dev, writes_dev

@@ -1,0 +1,54 @@
+"""``repro_torch`` and ``chip_smoke.py`` stand alone: neither imports
+``jax`` nor any part of the JAX package ``repro``."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+
+def _modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(REPO / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = list(_modules())
+    assert "repro_torch.core.bam_array" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'repro' "
+            "or m.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env={**os.environ,
+                              "PYTHONPATH": str(REPO / "src")},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_sources_never_name_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
