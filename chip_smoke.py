@@ -7,17 +7,41 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. device check: CUDA present; the card's name and power limit;
 2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (a 16,384-set x 4-way directory, 262,144 keys, gathers of
-   2^28 lanes), bit-identical, and timed with CUDA events beside its bound;
-4. the slice at full size: BFS (async tokens) and CC over a GAP-urand-style
-   graph of 2^23 vertices and degree 32 (E = 2^28 int32 edges in pinned
-   host storage), 4 KiB cache lines, a 256 MiB cache (a quarter of the edge
-   list), 16 SQs x 1024 over 4 simulated Optane P5800X devices; depths and
-   labels checked against scipy; every kernel's launch count must rise.
-   With ``--profile``, one more BFS and two CC rounds then run under
-   torch.profiler, for the host/device time split (tables in
-   ``chiprun_out/profile_*.txt``).
+3. each BaM kernel against its plain PyTorch version on the card, at the
+   main path's shapes (a 16,384-set x 4-way directory, 262,144 keys,
+   gathers of 2^28 lanes), bit-identical, and timed with CUDA events beside
+   its bound;
+4. each attention kernel against its plain version within
+   ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16):
+   ``paged_attention`` at the serving shape (B 8, 40 query over 8 KV
+   heads, head dim 128, 5 pages of 256, lengths 600-1280, one hole per
+   sequence) in bf16 and f32; ``flash_attention`` at B 1, S 4096 (a cut of
+   the prefill_32k cell's S 32,768 and B 32), causal, timed in bf16
+   beside SDPA, and causal and window-1024 in bf16 and f32, at the forward
+   check's shape (B 2, S 256) in f32, and a small non-causal ragged case;
+5. the BaM slice at full size: BFS (async tokens) and CC over a
+   GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
+   edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
+   quarter of the edge list), 16 SQs x 1024 over 4 simulated Optane P5800X
+   devices; depths and labels checked against scipy; every BaM kernel's
+   launch count must rise;
+6. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
+   ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
+   512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
+   32 new tokens each; every request done, pages spilled and fetched, and
+   ``paged_attention`` launched 48 times per engine step;
+7. the spill/fetch round trip at full size: B 2 after 600 decode steps,
+   ``keep_last=256``, so page 0 of every layer is cold; the next step's
+   logits after spill + fetch bit-identical to those without the spill;
+8. decode against forward: full width, depth cut to 4 layers, float32
+   (TF32 off for matmuls and cuDNN), B 2, S 256: the last-token logits of
+   256 ``decode_step``s (paged kernel) and of ``forward`` (flash kernel)
+   within atol = rtol = 2e-3.
+
+With ``--profile``, one more BFS and two CC rounds, and a window of engine
+steps in phase 6, run under torch.profiler (tables in
+``chiprun_out/profile_*.txt``), and phase 6 also reports the host seconds
+spent in each KV-manager call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound.  Details go to
@@ -34,6 +58,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+PEAK_BF16_FLOPS = 989e12        # dense tensor-core rate, NVIDIA data sheet
+TOL = {"float32": dict(atol=3e-5, rtol=3e-5),         # tests/test_kernels.py
+       "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 LINE_BYTES = 4096
 CACHE_BYTES = 256 << 20
 WAYS = 4
@@ -258,6 +285,142 @@ def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
 
 
 # --------------------------------------------------------------- phase 4 --
+def require_close(name, a, b, dtype) -> float:
+    """Assert ``a`` within TOL of the plain version ``b``; returns the
+    largest absolute error."""
+    import torch
+
+    tol = TOL[dtype]
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{name}: {a.dtype}{tuple(a.shape)} != "
+                             f"{b.dtype}{tuple(b.shape)}")
+    af, bf = a.double(), b.double()
+    if not bool(torch.isfinite(af).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((af - bf).abs().max())
+    if not bool(((af - bf).abs() <= tol["atol"] + tol["rtol"]
+                 * bf.abs()).all()):
+        raise AssertionError(f"{name}: max abs err {err} outside {tol}")
+    return err
+
+
+def paged_inputs(B, Hq, Hkv, D, page, NP, lens, dtype, gen, dev):
+    """Pools of random values, a random physical page per logical page and
+    one hole among each sequence's live pages."""
+    import torch
+
+    shape = (B, NP, page, Hkv, D)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    pt = torch.stack([torch.randperm(NP, generator=gen, device=dev)
+                      for _ in range(B)]).to(torch.int32)
+    sl = torch.randint(lens[0], lens[1] + 1, (B,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    for b in range(B):
+        n_live = -(-int(sl[b]) // page)
+        pt[b, int(torch.randint(0, n_live, (1,), generator=gen,
+                                device=dev))] = -1
+    return q, kp, vp, pt, sl
+
+
+def paged_live_bytes(q, kp, pt, sl) -> int:
+    """Bytes the paged kernel must move: the live K and V positions (not in
+    a hole, below seq_lens), q, the output, the table and the lengths."""
+    B, NP, page, Hkv, D = kp.shape
+    live = 0
+    for b in range(B):
+        for i in range(NP):
+            if int(pt[b, i]) >= 0:
+                live += max(0, min(page, int(sl[b]) - i * page))
+    return (2 * live * Hkv * D * kp.element_size()
+            + 2 * q.numel() * q.element_size() + pt.numel() * 4 + B * 4)
+
+
+def attention_kernel_phase(dev, seed):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    results = {}
+
+    # -- paged_attention at the serving shape, bf16 (timed) and f32
+    errs = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, kp, vp, pt, sl = paged_inputs(8, 40, 8, 128, 256, 5, (600, 1280),
+                                         dt, gen, dev)
+        errs.append(require_close(
+            f"paged_attention {dtype}", paged_attention_cuda(q, kp, vp, pt, sl),
+            ref.paged_attention_ref(q, kp, vp, pt, sl), dtype))
+    results["paged_attention"] = dict(
+        ms=cuda_time_ms(lambda: paged_attention_cuda(q, kp, vp, pt, sl),
+                        iters=50),
+        plain_ms=cuda_time_ms(lambda: ref.paged_attention_ref(
+            q, kp, vp, pt, sl)),
+        bound_ms=bound_ms(paged_live_bytes(q, kp, pt, sl)), bound_by="bytes",
+        library_ms=None, max_abs_err=max(errs),
+        shape=("B=8 Hq=40 Hkv=8 D=128 page=256 NP=P=5 bf16, seq_lens "
+               f"{sl.tolist()}, one hole per sequence"))
+
+    # -- flash_attention: causal bf16 at S=4096 (timed, beside SDPA), a
+    #    window of 1024, a small non-causal ragged case, and the forward
+    #    check's shape (B 2, S 256).  The float32 cases hold the causal mask,
+    #    the window compare and the tile skipping to 3e-5; the bf16 limit
+    #    (3e-2) is near the size of an output here.  TF32 is off for the
+    #    plain version's float32 matmuls.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = []
+    cases = [(1, 40, 8, 4096, 4096, 128, True, None, "bfloat16"),
+             (1, 40, 8, 4096, 4096, 128, True, 1024, "bfloat16"),
+             (1, 40, 8, 4096, 4096, 128, True, None, "float32"),
+             (1, 40, 8, 4096, 4096, 128, True, 1024, "float32"),
+             (2, 40, 8, 256, 256, 128, True, None, "float32"),
+             (2, 6, 2, 200, 333, 64, False, None, "float32"),
+             (2, 6, 2, 200, 333, 64, False, None, "bfloat16")]
+    case_errs = {}
+    for case in reversed(cases):
+        B, Hq, Hkv, Sq, Skv, D, causal, window, dtype = case
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
+        err = require_close(
+            f"flash_attention {case}",
+            flash_attention_cuda(q, k, v, causal=causal, window=window),
+            ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+            dtype)
+        errs.append(err)
+        case_errs[str(case)] = err
+        log(f"flash_attention {case}: max abs err {err}")
+    # the last case run is the first listed: causal bf16 at S=4096
+    S = q.shape[2]
+    pairs = S * (S + 1) // 2                      # live (query, key) pairs
+    flops = 4 * D * Hq * B * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    results["flash_attention"] = dict(
+        ms=cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=True)),
+        plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True), iters=3),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / PEAK_BF16_FLOPS
+        > nbytes / PEAK_BYTES_PER_S else "bytes",
+        max_abs_err=max(errs), flops=flops, case_errs=case_errs,
+        shape=("B=1 Hq=40 Hkv=8 S=4096 D=128 bf16 causal (cut from "
+               "prefill_32k: S 32768 -> 4096, B 32 -> 1)"))
+    del q, k, v, kp, vp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------------------- phase 5 --
 def scipy_check(indptr, dst, depth, labels):
     import numpy as np
     import scipy.sparse as sp
@@ -283,6 +446,36 @@ def scipy_check(indptr, dst, depth, labels):
     return time.perf_counter() - t0, int(first.shape[0])
 
 
+def profile_table(name, prof, wall):
+    """Write a profiler's tables to chiprun_out/ and log the device busy
+    share and the largest host and device items."""
+    import torch
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels and copies only: a CPU op's own device time repeats its
+    # kernels' time
+    on_dev = [e for e in ka if e.device_type != torch.autograd.DeviceType.CPU]
+    busy = sum(dev_us(e) for e in on_dev) / 1e6
+    (out_dir / f"profile_{name}.txt").write_text(
+        ka.table(sort_by="self_cpu_time_total", row_limit=25) + "\n"
+        + ka.table(sort_by="self_cuda_time_total", row_limit=25))
+    log(f"profile {name}: wall {wall:.6f} s under the profiler, device "
+        f"busy {busy:.6f} s ({busy / wall:.6f} of wall)")
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]:
+        log(f"  host  {e.key}: {e.self_cpu_time_total / 1e6:.6f} s "
+            f"self CPU, {e.count} calls")
+    for e in sorted(on_dev, key=lambda e: -dev_us(e))[:8]:
+        log(f"  device {e.key}: {dev_us(e) / 1e6:.6f} s, {e.count} calls")
+    return dict(wall_s=wall, device_busy_s=busy)
+
+
 def profile_runs(g):
     """Trace one async BFS and two CC rounds with torch.profiler (after the
     main path's counts were read); tables go to chiprun_out/."""
@@ -290,8 +483,6 @@ def profile_runs(g):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.graph.analytics import bfs, cc
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     for name, fn in (("bfs", lambda: bfs(g, 0, async_tokens=True)),
                      ("cc", lambda: cc(g, max_iters=2))):
         torch.cuda.synchronize()
@@ -301,28 +492,7 @@ def profile_runs(g):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        ka = prof.key_averages()
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-
-        # kernels and copies only: a CPU op's own device time repeats its
-        # kernels' time
-        on_dev = [e for e in ka
-                  if e.device_type != torch.autograd.DeviceType.CPU]
-        busy = sum(dev_us(e) for e in on_dev) / 1e6
-        (out_dir / f"profile_{name}.txt").write_text(
-            ka.table(sort_by="self_cpu_time_total", row_limit=25) + "\n"
-            + ka.table(sort_by="self_cuda_time_total", row_limit=25))
-        log(f"profile {name}: wall {wall:.6f} s under the profiler, device "
-            f"busy {busy:.6f} s ({busy / wall:.6f} of wall)")
-        for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]:
-            log(f"  host  {e.key}: {e.self_cpu_time_total / 1e6:.6f} s "
-                f"self CPU, {e.count} calls")
-        for e in sorted(on_dev, key=lambda e: -dev_us(e))[:8]:
-            log(f"  device {e.key}: {dev_us(e) / 1e6:.6f} s, "
-                f"{e.count} calls")
+        profile_table(name, prof, wall)
 
 
 def slice_phase(dev, log2_nodes, seed, counters, profile=False):
@@ -399,11 +569,226 @@ def slice_phase(dev, log2_nodes, seed, counters, profile=False):
                 components=n_comp, vertices_reached=reached)
 
 
+# --------------------------------------------------------------- phase 6 --
+def serving_phase(dev, seed, counters, profile=False):
+    """qwen2.5-14b at full width and depth, bf16, through the engine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, count_params
+    from repro_torch.serving import PagedKVManager, Request, ServeEngine
+
+    cfg = get_config("qwen2.5-14b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = build_model(cfg, dev)
+    model = api.init(seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(model)
+    log(f"serving: {cfg.name} {n_params} parameters ({cfg.dtype}), random "
+        f"init on the card in {t_init:.3f} s")
+
+    B, max_seq, new_tokens = 8, 1280, 32
+    kv = PagedKVManager(keep_last=512)
+    kv_s = None
+    if profile:
+        # host seconds in each KV-manager call, device work included; the
+        # synchronising wrappers change the loop, so only --profile has them
+        kv_s = {"maybe_spill": 0.0, "ensure_resident": 0.0}
+
+        def timed(name):
+            fn = getattr(kv, name)
+
+            def call(cache):
+                t = time.perf_counter()
+                out = fn(cache)
+                torch.cuda.synchronize()
+                kv_s[name] += time.perf_counter() - t
+                return out
+            setattr(kv, name, call)
+
+        timed("maybe_spill")
+        timed("ensure_resident")
+    eng = ServeEngine(cfg, model, batch_slots=B, max_seq=max_seq,
+                      kv_manager=kv, device=dev)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        2, cfg.vocab, int(rng.integers(600, 1001))).tolist(),
+        max_new_tokens=new_tokens) for i in range(B)]
+    for r in reqs:
+        eng.submit(r)
+    prof_window = (900, 933)          # engine steps traced with --profile
+    prof_res = None
+    for c in counters.values():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(sl.req is not None for sl in eng.slots):
+        if profile and eng.n_steps == prof_window[0]:
+            from torch.profiler import ProfilerActivity, profile as tprof
+            torch.cuda.synchronize()
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                tp = time.perf_counter()
+                while eng.n_steps < prof_window[1] and (
+                        eng.queue or any(sl.req for sl in eng.slots)):
+                    eng.step()
+                torch.cuda.synchronize()
+                twall = time.perf_counter() - tp
+            prof_res = profile_table("serve", prof, twall)
+            continue
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(r.done and len(r.out) == new_tokens for r in reqs):
+        raise AssertionError("serving: not every request completed")
+    m = kv.metrics.summary()
+    if not (m["write_ops"] > 0 and m["misses"] > 0):
+        raise AssertionError(f"serving: no pages spilled ({m['write_ops']}) "
+                             f"or fetched ({m['misses']})")
+    want = cfg.n_layers * eng.n_steps
+    if launches["paged_attention"] != want:
+        raise AssertionError(f"serving: paged_attention launched "
+                             f"{launches['paged_attention']} times, want "
+                             f"{want} (48 x {eng.n_steps} steps)")
+    gen_tokens = sum(len(r.out) for r in reqs)
+    all_tokens = sum(len(r.prompt) + len(r.out) for r in reqs)
+    res = dict(
+        arch=cfg.name, params=n_params, init_s=t_init, slots=B,
+        max_seq=max_seq, prompt_lens=[len(r.prompt) for r in reqs],
+        new_tokens=new_tokens, wall_s=wall, engine_steps=eng.n_steps,
+        ms_per_step=wall / eng.n_steps * 1e3,
+        generated_tokens=gen_tokens, generated_tokens_per_s=gen_tokens / wall,
+        tokens_through_decode=all_tokens,
+        decode_tokens_per_s=all_tokens / wall,
+        pages_spilled=m["write_ops"], pages_fetched=m["misses"],
+        bytes_to_storage=m["bytes_to_storage"],
+        bytes_from_storage=m["bytes_from_storage"],
+        sim_time_s=m["sim_time_s"], page_bytes=kv.page_bytes,
+        kv_manager_host_s=kv_s,
+        peak_device_bytes=peak, launches=launches, profiled=profile,
+        profile=prof_res)
+    log(f"serving: wall {wall:.6f} s{' (with a profiled window)' if profile else ''}, "
+        f"{eng.n_steps} engine steps, {res['ms_per_step']:.6f} ms per step, "
+        f"{gen_tokens} generated tokens ({res['generated_tokens_per_s']:.6f}"
+        f" tokens/s; {res['decode_tokens_per_s']:.6f} tokens/s through "
+        f"decode, prompts included)")
+    log(f"serving: pages spilled {m['write_ops']:.0f} ({m['bytes_to_storage']:.0f}"
+        f" bytes), fetched {m['misses']:.0f} ({m['bytes_from_storage']:.0f} "
+        f"bytes); simulated device time {m['sim_time_s']:.6f} s"
+        + ("" if kv_s is None else f"; host time in maybe_spill "
+           f"{kv_s['maybe_spill']:.6f} s, in ensure_resident "
+           f"{kv_s['ensure_resident']:.6f} s"))
+    log(f"serving: peak device memory {peak} bytes ({peak / 2 ** 30:.3f} "
+        f"GiB); launches {launches}")
+    del eng
+    return api, model, res
+
+
+def roundtrip_phase(api, model, seed):
+    """B 2 after 600 decode steps, keep_last 256: page 0 of every layer is
+    cold.  Logits after spill + fetch must be bit-identical."""
+    import torch
+    from repro_torch.serving import PagedKVManager
+
+    gen = torch.Generator(device=api.device).manual_seed(seed + 2)
+    torch.cuda.reset_peak_memory_stats()
+    cache = api.init_decode_cache(2, 1280)
+    toks = torch.randint(2, api.cfg.vocab, (601, 2), generator=gen,
+                         device=api.device, dtype=torch.int32)
+    t0 = time.perf_counter()
+    for t in range(600):
+        _, cache = api.decode_step(model, cache, toks[t])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    lg_plain, _ = api.decode_step(model, cache, toks[600])
+    kv = PagedKVManager(keep_last=256)
+    cache2, n_spilled = kv.maybe_spill(cache)
+    cache3, n_fetched = kv.ensure_resident(cache2)
+    lg, _ = api.decode_step(model, cache3, toks[600])
+    want = 2 * api.cfg.n_layers
+    if n_spilled != want or n_fetched != want:
+        raise AssertionError(f"roundtrip: spilled {n_spilled}, fetched "
+                             f"{n_fetched}, want {want} (page 0 per layer)")
+    if not bool(torch.isfinite(lg).all()) or not torch.equal(lg, lg_plain):
+        raise AssertionError("roundtrip: logits after spill + fetch differ "
+                             "from the logits without the spill")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"roundtrip: 600 decode steps at B 2 in {t_decode:.6f} s; "
+        f"{n_spilled} pages spilled and fetched; logits bit-identical; peak "
+        f"device memory {peak} bytes")
+    return dict(decode_steps=600, decode_s=t_decode, pages=n_spilled,
+                bit_identical=True, peak_device_bytes=peak)
+
+
+def decode_vs_forward_phase(dev, seed, counters):
+    """Full width, 4 layers, float32: S decode steps against forward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-14b").replace(n_layers=4, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    api = build_model(cfg, dev)
+    model = api.init(seed + 3)
+    B, S = 2, 256
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    fwd, _ = api.forward(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    fwd_launches = {k: c.n for k, c in counters.items()}
+    cache = api.init_decode_cache(B, S)
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg, cache = api.decode_step(model, cache, toks[:, t])
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    a, b = lg.double(), fwd[:, -1].double()
+    err = float((a - b).abs().max())
+    if not bool(torch.isfinite(a).all()) or not bool(
+            ((a - b).abs() <= 2e-3 + 2e-3 * b.abs()).all()):
+        raise AssertionError(f"decode vs forward: max abs err {err} outside "
+                             f"atol = rtol = 2e-3")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"decode vs forward (4 layers, f32, B {B}, S {S}): max abs err "
+        f"{err}; forward {t_fwd:.6f} s, {S} decode steps {t_dec:.6f} s; "
+        f"forward launches {fwd_launches}; peak device memory {peak} bytes")
+    del model, cache, fwd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, forward_s=t_fwd, decode_s=t_dec,
+                forward_launches=fwd_launches, peak_device_bytes=peak,
+                layers=cfg.n_layers, B=B, S=S)
+
+
 REPLACES = {
     "probe_allocate": "src/repro/kernels/probe_allocate.py:167",
     "cache_probe": "src/repro/kernels/cache_probe.py:75",
     "gather_blocks": "src/repro/kernels/gather_blocks.py:39",
+    "paged_attention": "src/repro/kernels/paged_attention.py:77",
+    "flash_attention": "src/repro/kernels/flash_attention.py:127",
 }
+
+
+def kernel_entry(name, r, launches):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r.get("library_ms")}
 
 
 def main() -> int:
@@ -411,8 +796,8 @@ def main() -> int:
     ap.add_argument("--log2-nodes", type=int, default=23)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after the checked run, trace one more BFS and two "
-                         "CC rounds with torch.profiler")
+                    help="trace one more BFS and two CC rounds, and a "
+                         "window of serving steps, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -421,8 +806,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels import cache_probe, gather_blocks, probe_allocate
+    from repro_torch.kernels import (cache_probe, flash_attention,
+                                     gather_blocks, paged_attention,
+                                     probe_allocate)
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -438,37 +826,51 @@ def main() -> int:
             log("  " + line.strip())
 
     kres = kernel_phase(dev, args.seed)
+    kres.update(attention_kernel_phase(dev, args.seed))
     for k, v in kres.items():
+        lib = v.get("library_ms")
         log(f"kernel {k}: {v['ms']:.6f} ms (plain {v['plain_ms']:.6f} ms, "
-            f"bound {v['bound_ms']:.6f} ms) at {v['shape']}")
+            f"bound {v['bound_ms']:.6f} ms by {v.get('bound_by', 'bytes')}"
+            + (f", library {lib:.6f} ms" if lib is not None else "")
+            + f", max abs err {v['max_abs_err']}) at {v['shape']}")
     log(f"kernel gather_blocks (line): {kres['gather_blocks']['line_ms']:.6f}"
         f" ms (plain {kres['gather_blocks']['line_plain_ms']:.6f} ms, bound "
         f"{kres['gather_blocks']['line_bound_ms']:.6f} ms)")
 
-    counters = {"probe_allocate": probe_allocate.launches,
-                "cache_probe": cache_probe.launches,
-                "gather_blocks": gather_blocks.launches}
-    sres = slice_phase(dev, args.log2_nodes, args.seed, counters,
+    bam = {"probe_allocate": probe_allocate.launches,
+           "cache_probe": cache_probe.launches,
+           "gather_blocks": gather_blocks.launches}
+    attn = {"paged_attention": paged_attention.launches,
+            "flash_attention": flash_attention.launches}
+    sres = slice_phase(dev, args.log2_nodes, args.seed, bam,
                        profile=args.profile)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    api, model, serve = serving_phase(dev, args.seed, attn,
+                                      profile=args.profile)
+    rt = roundtrip_phase(api, model, args.seed)
+    del api, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dvf = decode_vs_forward_phase(dev, args.seed, attn)
+    if dvf["forward_launches"]["flash_attention"] == 0:
+        raise AssertionError("forward never launched flash_attention")
 
-    kernels = []
-    for name in ("probe_allocate", "cache_probe", "gather_blocks"):
-        r = kres[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name],
-            "launches": sres["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+    launches = dict(sres["launches"])
+    launches["paged_attention"] = serve["launches"]["paged_attention"]
+    launches["flash_attention"] = dvf["forward_launches"]["flash_attention"]
+    kernels = [kernel_entry(name, kres[name], launches[name])
+               for name in REPLACES]
+    total_s = time.perf_counter() - t_start
+    log(f"chip_smoke: all phases passed in {total_s:.3f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda,
         build_s=t_build, build_log=build.build_log, kernels=kres,
-        slice=sres), indent=1))
+        slice=sres, serving=serve, roundtrip=rt, decode_vs_forward=dvf,
+        total_s=total_s), indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Storage-device models and the Little's-law throughput math.
 
 Port of ``repro.core.ssd``: the ``SSDSpec`` table (paper Table III), block
-striping over an array of devices, and the per-device service-time model.
+striping over an array of devices, the host-side Little's-law service time
+(``ArrayOfSSDs.service_time``, which the paged-KV manager charges) and the
+per-device service-time model.
 ``FaultModel`` is carried as configuration only: its enabled path (command
 status by counter hash) waits for a later slice, and ``BamArray.build``
 refuses an enabled model.
@@ -112,6 +114,15 @@ def _bincount_masked(idx: torch.Tensor, mask: torch.Tensor,
                           mask.to(torch.int32))
 
 
+def sustained_rate(concurrent: float, latency_s: float,
+                   peak_iops: float) -> float:
+    """Delivery rate for X concurrently serviceable requests: X / (L + X/T),
+    which approaches ``peak_iops`` when X >> T * L (paper §II-C)."""
+    if concurrent <= 0:
+        return 0.0
+    return concurrent / (latency_s + concurrent / peak_iops)
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultModel:
     """Deterministic fault injection (configuration only in this slice).
@@ -155,6 +166,28 @@ class ArrayOfSSDs:
     accel_link_bw: float = PCIE_GEN4_X16_BW
     stripe_blocks: int = 1
     fault: FaultModel = FaultModel()
+
+    def peak_read_iops(self, block_bytes: int) -> float:
+        dev = self.n_devices * min(self.spec.read_iops(block_bytes),
+                                   self.spec.link_bw / block_bytes)
+        return min(dev, self.accel_link_bw / block_bytes)
+
+    def peak_write_iops(self, block_bytes: int) -> float:
+        dev = self.n_devices * min(self.spec.write_iops(block_bytes),
+                                   self.spec.link_bw / block_bytes)
+        return min(dev, self.accel_link_bw / block_bytes)
+
+    def service_time(self, n_requests: int, block_bytes: int, *,
+                     write: bool = False) -> float:
+        """Simulated seconds to drain ``n_requests`` random accesses
+        (host-side Python floats) at the X / (L + X/T) delivery rate, all
+        requests in flight at once."""
+        if n_requests <= 0:
+            return 0.0
+        peak = (self.peak_write_iops if write
+                else self.peak_read_iops)(block_bytes)
+        return n_requests / sustained_rate(float(n_requests),
+                                           self.spec.latency_s, peak)
 
     def per_device_peak_iops(self, block_bytes: int, *,
                              write: bool = False) -> float:

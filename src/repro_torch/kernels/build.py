@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
@@ -38,6 +39,9 @@ SIGNATURES = {
     "gather_lines_launch": [_P, _P, _L, _L, _I, _P, _P],
     "probe_allocate_launch": (
         [_P] * 8 + [_L, _P, _L] + [_I] * 7 + [_P] * 14),
+    "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P],
+    "flash_attention_launch": (
+        [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

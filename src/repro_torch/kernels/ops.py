@@ -10,7 +10,9 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.cache_probe import cache_probe_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gather_blocks import gather_blocks_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.probe_allocate import probe_allocate_cuda
 
 
@@ -48,6 +50,20 @@ def probe_allocate(tags, owner, refcount, dirty, speculative, clock_hand,
               valid, alloc_mask, protect_slots, tenant=tenant, way_lo=way_lo,
               way_hi=way_hi, spec_insert=spec_insert,
               protect_hits=protect_hits)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """Causal / windowed GQA attention over full sequences: q (B, Hq, Sq, D),
+    k and v (B, Hkv, Skv, D); ``window`` a Python int or None."""
+    fn = _ref.flash_attention_ref if _on(q) == "cpu" else flash_attention_cuda
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
+    """One-token attention over a paged KV pool: q (B, Hq, D), pools
+    (B, P, page, Hkv, D), page_table (B, NP) with -1 holes, seq_lens (B,)."""
+    fn = _ref.paged_attention_ref if _on(q) == "cpu" else paged_attention_cuda
+    return fn(q, k_pages, v_pages, page_table, seq_lens)
 
 
 sq_enqueue = _ref.sq_enqueue_ref

@@ -1,17 +1,80 @@
 """Plain PyTorch versions of the hot-path kernels.
 
-Ports of ``repro.kernels.ref``: ``cache_probe_ref``, ``probe_allocate_ref``
-and ``gather_blocks_ref`` are the plain versions of the three CUDA kernels
-(the CPU path, and the yardstick the kernels are held against on the card);
+Ports of ``repro.kernels.ref``: ``cache_probe_ref``, ``probe_allocate_ref``,
+``gather_blocks_ref``, ``paged_attention_ref`` and ``flash_attention_ref``
+are the plain versions of the five CUDA kernels (the CPU path, and the
+yardstick the kernels are held against on the card);
 ``sq_enqueue_ref`` and ``wfq_drain_ref`` were never Pallas kernels and stay
 plain torch on every device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.ssd import device_of_block
 from repro_torch.utils import mix_hash, segment_rank
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  Plain masked softmax in
+    float32 with scale 1/sqrt(D); query head h reads kv head h // (Hq //
+    Hkv); a row with no live key is zero.  Output in q's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
+    out = torch.where(mask.any(dim=-1)[:, None], out, 0.0)
+    return out.to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_table: torch.Tensor,
+                        seq_lens: torch.Tensor) -> torch.Tensor:
+    """One-token attention over a paged pool, scale 1/sqrt(D).  q:
+    (B, Hq, D); pools (B, P, page, Hkv, D); page_table (B, NP) int32, -1 a
+    hole; seq_lens (B,).  Keys at holes and at positions >= seq_lens are
+    masked; a row with no live key is zero.  Output (B, Hq, D) in q's
+    dtype."""
+    B, Hq, D = q.shape
+    page, Hkv = k_pages.shape[2], k_pages.shape[3]
+    NP = page_table.shape[1]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    safe = torch.clamp(page_table, min=0).long()               # (B, NP)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    S = NP * page
+    k = k_pages[bidx, safe].permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    v = v_pages[bidx, safe].permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    k = k.repeat_interleave(group, dim=1).float()
+    v = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+    pos = torch.arange(S, device=q.device)[None, :]
+    hole = (page_table < 0).repeat_interleave(page, dim=1)     # (B, S)
+    live = (pos < seq_lens[:, None]) & ~hole
+    s = torch.where(live[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(live[:, None], p, 0.0)
+    out = torch.einsum("bhk,bhkd->bhd", p, v)
+    return out.to(q.dtype)
 
 
 def gather_blocks_ref(data: torch.Tensor, slots: torch.Tensor,

@@ -4,6 +4,9 @@ Own copies of ``repro.utils``'s helpers: the port never imports ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 
 INT32_MAX = 2 ** 31 - 1
@@ -61,3 +64,11 @@ def segment_rank(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((m,), dtype=torch.int32, device=ids.device)
     return out.scatter_(0, order, rank_sorted)
 
+
+@dataclasses.dataclass
+class Tagged:
+    """A value tagged with a kind string (decode-cache entries: ``"paged"``
+    for a BaM-paged pool).  The reference's pytree of the same name."""
+
+    kind: str
+    value: Any

@@ -54,6 +54,20 @@ def assert_fields_equal(port_obj, jax_obj, msg=""):
                                       err_msg=f"{msg} {f.name}")
 
 
+def assert_metrics_equal(port_m, jax_m, msg=""):
+    """Every ``IOMetrics`` field of the port equal to the reference's:
+    counters exactly, time fields within ``TIME_RTOL``."""
+    for f in dataclasses.fields(port_m):
+        a = _as_cmp(getattr(port_m, f.name).detach().cpu().numpy())
+        b = _as_cmp(getattr(jax_m, f.name))
+        assert a.shape == b.shape, f"{msg} {f.name}: {a.shape} != {b.shape}"
+        if f"metrics.{f.name}" in TIME_FIELDS:
+            np.testing.assert_allclose(a, b, rtol=TIME_RTOL, atol=0,
+                                       err_msg=f"{msg} {f.name}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{msg} {f.name}")
+
+
 def assert_states_equal(port_st, jax_st, msg=""):
     """Every cache, queue and metric field bit-identical (integer-valued
     counters compared exactly across float64/float32), time fields within

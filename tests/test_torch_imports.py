@@ -19,7 +19,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.core.bam_array" in mods
+    for m in ("repro_torch.core.bam_array", "repro_torch.serving.engine",
+              "repro_torch.models.transformer"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
