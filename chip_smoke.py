@@ -6,19 +6,28 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. device check: CUDA present; the card's name and power limit;
-2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc, and
+   count the HGMMA (wgmma) instructions of each tensor-core flash kernel
+   in ``cuobjdump -sass`` (none is a failure);
 3. each BaM kernel against its plain PyTorch version on the card, at the
    main path's shapes (a 16,384-set x 4-way directory, 262,144 keys,
    gathers of 2^28 lanes), bit-identical, and timed with CUDA events beside
    its bound;
 4. each attention kernel against its plain version within
-   ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16):
-   ``paged_attention`` at the serving shape (B 8, 40 query over 8 KV
-   heads, head dim 128, 5 pages of 256, lengths 600-1280, one hole per
-   sequence) in bf16 and f32; ``flash_attention`` at B 1, S 4096 (a cut of
-   the prefill_32k cell's S 32,768 and B 32), causal, timed in bf16
-   beside SDPA, and causal and window-1024 in bf16 and f32, at the forward
-   check's shape (B 2, S 256) in f32, and a small non-causal ragged case;
+   ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16), and every
+   bf16 output also against the plain version computed in f32 from the
+   same inputs, within what bf16 rounding can explain (``BF16_ROUNDING``;
+   for flash, two planted faults, one 128-key tile dropped and the window
+   one key too wide, must exceed that limit):
+   ``paged_attention`` (split-KV) at the serving shape (B 8, 40 query over
+   8 KV heads, head dim 128, 5 pages of 256, lengths 600-1280, one hole per
+   sequence) in bf16 and f32, bit-identical across two runs and when the
+   physical pages are permuted with the page table; ``flash_attention`` at
+   B 1, S 4096 (a cut of the prefill_32k cell's S 32,768 and B 32), causal,
+   timed in bf16 on the tensor-core kernel beside SDPA and, in f32, on the
+   SIMT kernel; causal and window-1024 in bf16 (head dims 64, 128, 256,
+   tensor cores) and f32 (SIMT), at the forward check's shape (B 2, S 256)
+   in both, and a small non-causal ragged case in both;
 5. the BaM slice at full size: BFS (async tokens) and CC over a
    GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
@@ -33,10 +42,11 @@ Phases, each of which must pass or the script exits non-zero:
 7. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
-8. decode against forward: full width, depth cut to 4 layers, float32
-   (TF32 off for matmuls and cuDNN), B 2, S 256: the last-token logits of
-   256 ``decode_step``s (paged kernel) and of ``forward`` (flash kernel)
-   within atol = rtol = 2e-3.
+8. decode against forward: full width, depth cut to 4 layers, B 2, S 256:
+   the last-token logits of 256 ``decode_step``s (paged kernel) and of
+   ``forward`` (flash kernel), in float32 (TF32 off for matmuls and cuDNN;
+   SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
+   flash, which must have run) within atol 0.15 (``DVF_LIMITS``).
 
 With ``--profile``, one more BFS and two CC rounds, and a window of engine
 steps in phase 6, run under torch.profiler (tables in
@@ -61,6 +71,15 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # dense tensor-core rate, NVIDIA data sheet
 TOL = {"float32": dict(atol=3e-5, rtol=3e-5),         # tests/test_kernels.py
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+# A bf16 attention kernel against the plain version computed in f32 from the
+# same bf16 inputs.  The kernels compute in f32 and round to bf16 at most
+# twice: P before P @ V (tensor-core flash; at most 2^-8 of each p, so at
+# most 2^-8 of sum p|v| / l, the p-weighted mean of |v|) and the output (at
+# most 2^-8 of |o|, which is no larger than that mean).  So the error of an
+# element is at most 2^-7 of the p-weighted mean of |v| in its column (the
+# plain version run on |v| gives it); atol covers the f32 arithmetic's own
+# differences (summation order, exp2).
+BF16_ROUNDING = dict(rel=2.0 ** -7, atol=1e-5)
 LINE_BYTES = 4096
 CACHE_BYTES = 256 << 20
 WAYS = 4
@@ -91,6 +110,49 @@ def cuda_time_ms(fn, iters=10, warmup=2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_time_ms(fn, calls=20, reps=10) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events, so the host's cost of
+    issuing each call is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def host_us_per_call(fn, calls=200) -> float:
+    """Host time to issue one call, in microseconds: ``calls`` back-to-back
+    calls on the host clock, the device idle at the start (its queue takes
+    the launches while they are issued)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def bound_ms(nbytes: float) -> float:
@@ -126,6 +188,26 @@ def require_equal(name, a_tuple, b_tuple) -> float:
             raise AssertionError(f"{name}: output {i} differs from the plain "
                                  f"version (max abs err {max_abs_err(a, b)})")
     return 0.0
+
+
+def hgmma_counts(lib_path) -> dict:
+    """HGMMA (wgmma) instructions in each tensor-core flash kernel of the
+    built library, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    cuobjdump = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "flash_fwd_tc_kernel" in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -304,6 +386,60 @@ def require_close(name, a, b, dtype) -> float:
     return err
 
 
+def bf16_rounding_ratio(out, want32, scale) -> float:
+    """The largest ``|out - want32| / (rel * scale + atol)`` of
+    ``BF16_ROUNDING``: at most 1 for a kernel whose only error is bf16
+    rounding, where ``scale`` is the plain version run on |v|."""
+    import torch
+
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite output")
+    err = (out.double() - want32.double()).abs()
+    return float((err / (BF16_ROUNDING["rel"] * scale.double()
+                         + BF16_ROUNDING["atol"])).max())
+
+
+def attention_rows_ref(q, k, v, r0, mask):
+    """Plain attention in f32 for the query rows from ``r0`` on under an
+    explicit (rows, Skv) mask; every row must see a key."""
+    import math
+
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:].float(), kr) \
+        / math.sqrt(q.shape[-1])
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr)
+
+
+def flash_planted_ratios(out, q, k, v, causal, window, scale) -> dict:
+    """``bf16_rounding_ratio`` of ``out`` against two planted faults of the
+    plain version, on the last 128 query rows: one 128-key tile that every
+    one of those rows sees dropped, and (with a window) the window one key
+    too wide.  A limit that a wrong kernel must fail reads above 1 here."""
+    import torch
+
+    Sq, Skv = q.shape[2], k.shape[2]
+    r0 = max(0, Sq - 128)
+    qp = torch.arange(r0, Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    causal_mask = torch.ones((Sq - r0, Skv), dtype=torch.bool,
+                             device=q.device)
+    if causal:
+        causal_mask &= kp <= qp
+    mask = causal_mask if window is None else causal_mask & (kp > qp - window)
+    t0 = max(0, Sq - 512) // 128 * 128
+    faults = {"tile_dropped": mask & ~((kp >= t0) & (kp < t0 + 128))}
+    if window is not None:
+        faults["window_plus_one"] = causal_mask & (kp > qp - window - 1)
+    return {name: bf16_rounding_ratio(
+        out[:, :, r0:], attention_rows_ref(q, k, v, r0, fault),
+        scale[:, :, r0:]) for name, fault in faults.items()}
+
+
 def paged_inputs(B, Hq, Hkv, D, page, NP, lens, dtype, gen, dev):
     """Pools of random values, a random physical page per logical page and
     one hole among each sequence's live pages."""
@@ -341,7 +477,8 @@ def attention_kernel_phase(dev, seed):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     variant, variant_launches)
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -353,50 +490,134 @@ def attention_kernel_phase(dev, seed):
         dt = getattr(torch, dtype)
         q, kp, vp, pt, sl = paged_inputs(8, 40, 8, 128, 256, 5, (600, 1280),
                                          dt, gen, dev)
+        out = paged_attention_cuda(q, kp, vp, pt, sl)
         errs.append(require_close(
-            f"paged_attention {dtype}", paged_attention_cuda(q, kp, vp, pt, sl),
+            f"paged_attention {dtype}", out,
             ref.paged_attention_ref(q, kp, vp, pt, sl), dtype))
+        if dtype == "bfloat16":
+            qf, kf, vf = q.float(), kp.float(), vp.float()
+            paged_ratio = bf16_rounding_ratio(
+                out, ref.paged_attention_ref(qf, kf, vf, pt, sl),
+                ref.paged_attention_ref(qf, kf, vf.abs(), pt, sl))
+            del qf, kf, vf
+            log(f"paged_attention bf16 against f32 plain: {paged_ratio} of "
+                f"the bf16 rounding limit")
+            if paged_ratio > 1:
+                raise AssertionError(f"paged_attention bf16: {paged_ratio} "
+                                     f"times the bf16 rounding limit")
+        # the split is by logical position and the combine order fixed:
+        # the same input gives the same bits, and so do the same pages at
+        # other physical slots (pools and table permuted together)
+        if not torch.equal(paged_attention_cuda(q, kp, vp, pt, sl), out):
+            raise AssertionError(f"paged_attention {dtype}: two runs of one "
+                                 f"input differ")
+        B, P = kp.shape[:2]
+        perm = torch.stack([torch.randperm(P, generator=gen, device=dev)
+                            for _ in range(B)])
+        bidx = torch.arange(B, device=dev)[:, None]
+        kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+        kp2[bidx, perm] = kp
+        vp2[bidx, perm] = vp
+        pt2 = torch.where(pt >= 0, torch.gather(perm, 1, pt.clamp(min=0).long())
+                          .to(torch.int32), pt)
+        if not torch.equal(paged_attention_cuda(q, kp2, vp2, pt2, sl), out):
+            raise AssertionError(f"paged_attention {dtype}: output changed "
+                                 f"when the physical pages were permuted")
+        del kp2, vp2
+    log("paged_attention: bit-identical across two runs and under a "
+        "permutation of the physical pages (f32 and bf16)")
+    # ms: back-to-back eager calls between CUDA events, as every kernel here
+    # is timed; issuing a call from Python takes longer than the two kernels
+    # run, so the kernels' own device time (a CUDA graph of 20 calls) is
+    # device_ms beside it
     results["paged_attention"] = dict(
         ms=cuda_time_ms(lambda: paged_attention_cuda(q, kp, vp, pt, sl),
                         iters=50),
+        device_ms=cuda_graph_time_ms(
+            lambda: paged_attention_cuda(q, kp, vp, pt, sl)),
+        host_us=host_us_per_call(
+            lambda: paged_attention_cuda(q, kp, vp, pt, sl)),
         plain_ms=cuda_time_ms(lambda: ref.paged_attention_ref(
             q, kp, vp, pt, sl)),
         bound_ms=bound_ms(paged_live_bytes(q, kp, pt, sl)), bound_by="bytes",
         library_ms=None, max_abs_err=max(errs),
+        bf16_rounding_ratio=paged_ratio,
         shape=("B=8 Hq=40 Hkv=8 D=128 page=256 NP=P=5 bf16, seq_lens "
                f"{sl.tolist()}, one hole per sequence"))
 
     # -- flash_attention: causal bf16 at S=4096 (timed, beside SDPA), a
     #    window of 1024, a small non-causal ragged case, and the forward
-    #    check's shape (B 2, S 256).  The float32 cases hold the causal mask,
-    #    the window compare and the tile skipping to 3e-5; the bf16 limit
-    #    (3e-2) is near the size of an output here.  TF32 is off for the
-    #    plain version's float32 matmuls.
+    #    check's shape (B 2, S 256); bf16 at head dims 64 (tests) and 256
+    #    (gemma3-12b: 16 query over 8 KV heads), causal and window 1024.
+    #    Every bf16 case here runs the tensor-core kernel, every f32 case
+    #    the SIMT one (the variant is checked).  The float32 cases hold the
+    #    SIMT kernel's causal mask, window compare and tile skipping to
+    #    3e-5.  TOL's bf16 limit (3e-2) is near the size of an output here,
+    #    so every bf16 output is also held to the plain version in f32 on
+    #    the same inputs within BF16_ROUNDING, and two planted faults (a
+    #    dropped key tile, a window one key too wide) must exceed that
+    #    limit.  TF32 is off for the plain version's float32 matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = []
     cases = [(1, 40, 8, 4096, 4096, 128, True, None, "bfloat16"),
              (1, 40, 8, 4096, 4096, 128, True, 1024, "bfloat16"),
+             (1, 16, 8, 4096, 4096, 64, True, None, "bfloat16"),
+             (1, 16, 8, 4096, 4096, 64, True, 1024, "bfloat16"),
+             (1, 16, 8, 4096, 4096, 256, True, None, "bfloat16"),
+             (1, 16, 8, 4096, 4096, 256, True, 1024, "bfloat16"),
              (1, 40, 8, 4096, 4096, 128, True, None, "float32"),
              (1, 40, 8, 4096, 4096, 128, True, 1024, "float32"),
              (2, 40, 8, 256, 256, 128, True, None, "float32"),
+             (2, 40, 8, 256, 256, 128, True, None, "bfloat16"),
              (2, 6, 2, 200, 333, 64, False, None, "float32"),
              (2, 6, 2, 200, 333, 64, False, None, "bfloat16")]
-    case_errs = {}
+    case_errs, ratios = {}, {}
+    simt_ms = None
     for case in reversed(cases):
         B, Hq, Hkv, Sq, Skv, D, causal, window, dtype = case
         dt = getattr(torch, dtype)
         q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
+        kind = variant(q, k)
+        if kind != ("tc" if dtype == "bfloat16" else "simt"):
+            raise AssertionError(f"flash_attention {case}: runs {kind}")
+        n0 = variant_launches[kind].n
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         err = require_close(
-            f"flash_attention {case}",
-            flash_attention_cuda(q, k, v, causal=causal, window=window),
+            f"flash_attention {case}", out,
             ref.flash_attention_ref(q, k, v, causal=causal, window=window),
             dtype)
+        if variant_launches[kind].n != n0 + 1:
+            raise AssertionError(f"flash_attention {case}: {kind} not counted")
         errs.append(err)
         case_errs[str(case)] = err
-        log(f"flash_attention {case}: max abs err {err}")
+        log(f"flash_attention {case} ({kind}): max abs err {err}")
+        if dtype == "bfloat16":
+            qf, kf, vf = q.float(), k.float(), v.float()
+            scale = ref.flash_attention_ref(qf, kf, vf.abs(), causal=causal,
+                                            window=window)
+            r = dict(sound=bf16_rounding_ratio(out, ref.flash_attention_ref(
+                qf, kf, vf, causal=causal, window=window), scale))
+            r.update(flash_planted_ratios(out, q, k, v, causal, window,
+                                          scale))
+            del qf, kf, vf, scale
+            ratios[str(case)] = r
+            log(f"flash_attention {case}: against f32 plain, ratios to the "
+                f"bf16 rounding limit {r}")
+        del out
+        if case == cases[6]:          # f32 causal at S=4096: the SIMT kernel
+            simt_ms = cuda_time_ms(
+                lambda: flash_attention_cuda(q, k, v, causal=True), iters=3)
+            log(f"flash_attention simt, f32 causal S=4096: {simt_ms:.6f} ms")
+    # the sound readings must sit within the limit and every planted fault
+    # outside it
+    for case, r in ratios.items():
+        if r["sound"] > 1 or min(x for name, x in r.items()
+                                 if name != "sound") <= 1:
+            raise AssertionError(f"flash_attention {case}: ratios to the "
+                                 f"bf16 rounding limit {r}")
     # the last case run is the first listed: causal bf16 at S=4096
     S = q.shape[2]
     pairs = S * (S + 1) // 2                      # live (query, key) pairs
@@ -404,6 +625,7 @@ def attention_kernel_phase(dev, seed):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     results["flash_attention"] = dict(
         ms=cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=True)),
+        variant=variant(q, k), simt_f32_ms=simt_ms,
         plain_ms=cuda_time_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=True), iters=3),
         library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
@@ -412,6 +634,7 @@ def attention_kernel_phase(dev, seed):
         bound_by="operations" if flops / PEAK_BF16_FLOPS
         > nbytes / PEAK_BYTES_PER_S else "bytes",
         max_abs_err=max(errs), flops=flops, case_errs=case_errs,
+        bf16_rounding_ratios=ratios,
         shape=("B=1 Hq=40 Hkv=8 S=4096 D=128 bf16 causal (cut from "
                "prefill_32k: S 32768 -> 4096, B 32 -> 1)"))
     del q, k, v, kp, vp
@@ -725,15 +948,26 @@ def roundtrip_phase(api, model, seed):
                 bit_identical=True, peak_device_bytes=peak)
 
 
-def decode_vs_forward_phase(dev, seed, counters):
-    """Full width, 4 layers, float32: S decode steps against forward."""
+# Limits of phase 8 (last-token logits of 256 decode steps against forward,
+# full width, 4 layers) as (atol, rtol).  float32 (TF32 off): the two paths
+# sum in different orders, nothing else.  bfloat16: forward's tensor-core
+# flash kernel rounds P to bf16 before P.V, and the two paths round K, V and
+# every activation to bf16 at different points, so the logits (of size
+# about 5) differ far more: the first chip run of this check gave a max abs
+# err of 0.04296875 (NVIDIA H100 80GB HBM3), and the limit is 3.5 times it.
+DVF_LIMITS = {"float32": (2e-3, 2e-3), "bfloat16": (0.15, 0.0)}
+
+
+def decode_vs_forward_phase(dev, seed, counters, dtype="float32"):
+    """Full width, 4 layers: S decode steps (paged kernel) against forward
+    (flash kernel: SIMT in float32, tensor cores in bfloat16)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen2.5-14b").replace(n_layers=4, dtype="float32")
+    cfg = get_config("qwen2.5-14b").replace(n_layers=4, dtype=dtype)
     torch.cuda.reset_peak_memory_stats()
     api = build_model(cfg, dev)
     model = api.init(seed + 3)
@@ -748,6 +982,12 @@ def decode_vs_forward_phase(dev, seed, counters):
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     fwd_launches = {k: c.n for k, c in counters.items()}
+    want_kind = "flash_attention.tc" if dtype == "bfloat16" \
+        else "flash_attention.simt"
+    if fwd_launches[want_kind] != cfg.n_layers:
+        raise AssertionError(f"decode vs forward ({dtype}): forward launched "
+                             f"{fwd_launches}, want {cfg.n_layers} of "
+                             f"{want_kind}")
     cache = api.init_decode_cache(B, S)
     t0 = time.perf_counter()
     for t in range(S):
@@ -756,20 +996,24 @@ def decode_vs_forward_phase(dev, seed, counters):
     t_dec = time.perf_counter() - t0
     a, b = lg.double(), fwd[:, -1].double()
     err = float((a - b).abs().max())
+    atol, rtol = DVF_LIMITS[dtype]
+    lim = dict(atol=atol, rtol=rtol)
     if not bool(torch.isfinite(a).all()) or not bool(
-            ((a - b).abs() <= 2e-3 + 2e-3 * b.abs()).all()):
-        raise AssertionError(f"decode vs forward: max abs err {err} outside "
-                             f"atol = rtol = 2e-3")
+            ((a - b).abs() <= atol + rtol * b.abs()).all()):
+        raise AssertionError(f"decode vs forward ({dtype}): max abs err "
+                             f"{err} outside {lim}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"decode vs forward (4 layers, f32, B {B}, S {S}): max abs err "
-        f"{err}; forward {t_fwd:.6f} s, {S} decode steps {t_dec:.6f} s; "
-        f"forward launches {fwd_launches}; peak device memory {peak} bytes")
+    log(f"decode vs forward (4 layers, {dtype}, B {B}, S {S}): max abs err "
+        f"{err} (limit {lim}, logits max abs {float(b.abs().max())}); "
+        f"forward {t_fwd:.6f} s, {S} decode steps {t_dec:.6f} s; forward "
+        f"launches {fwd_launches}; peak device memory {peak} bytes")
     del model, cache, fwd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, forward_s=t_fwd, decode_s=t_dec,
+    return dict(max_abs_err=err, limit=lim, forward_s=t_fwd, decode_s=t_dec,
                 forward_launches=fwd_launches, peak_device_bytes=peak,
-                layers=cfg.n_layers, B=B, S=S)
+                layers=cfg.n_layers, B=B, S=S, dtype=dtype,
+                logits_max_abs=float(b.abs().max()))
 
 
 REPLACES = {
@@ -782,13 +1026,16 @@ REPLACES = {
 
 
 def kernel_entry(name, r, launches):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r.get("bound_by", "bytes"),
-            "library_ms": r.get("library_ms")}
+    entry = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "replaces": REPLACES[name], "launches": launches,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r.get("bound_by", "bytes"),
+             "library_ms": r.get("library_ms")}
+    if "variant" in r:                 # flash: the kernel that was timed
+        entry["variant"] = r["variant"]
+    return entry
 
 
 def main() -> int:
@@ -824,6 +1071,11 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
+    hgmma = hgmma_counts(lib_path)
+    log(f"HGMMA instructions per tensor-core flash kernel: {hgmma}")
+    if len(hgmma) != 3 or not all(hgmma.values()):
+        raise AssertionError(f"tensor-core flash kernels without wgmma: "
+                             f"{hgmma}")
 
     kres = kernel_phase(dev, args.seed)
     kres.update(attention_kernel_phase(dev, args.seed))
@@ -832,6 +1084,9 @@ def main() -> int:
         log(f"kernel {k}: {v['ms']:.6f} ms (plain {v['plain_ms']:.6f} ms, "
             f"bound {v['bound_ms']:.6f} ms by {v.get('bound_by', 'bytes')}"
             + (f", library {lib:.6f} ms" if lib is not None else "")
+            + (f", device {v['device_ms']:.6f} ms, host "
+               f"{v['host_us']:.3f} us a call" if "device_ms" in v else "")
+            + (f", {v['variant']} kernel" if "variant" in v else "")
             + f", max abs err {v['max_abs_err']}) at {v['shape']}")
     log(f"kernel gather_blocks (line): {kres['gather_blocks']['line_ms']:.6f}"
         f" ms (plain {kres['gather_blocks']['line_plain_ms']:.6f} ms, bound "
@@ -841,7 +1096,9 @@ def main() -> int:
            "cache_probe": cache_probe.launches,
            "gather_blocks": gather_blocks.launches}
     attn = {"paged_attention": paged_attention.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "flash_attention.tc": flash_attention.variant_launches["tc"],
+            "flash_attention.simt": flash_attention.variant_launches["simt"]}
     sres = slice_phase(dev, args.log2_nodes, args.seed, bam,
                        profile=args.profile)
     torch.cuda.synchronize()
@@ -853,12 +1110,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     dvf = decode_vs_forward_phase(dev, args.seed, attn)
-    if dvf["forward_launches"]["flash_attention"] == 0:
-        raise AssertionError("forward never launched flash_attention")
+    dvf_bf16 = decode_vs_forward_phase(dev, args.seed, attn, "bfloat16")
 
     launches = dict(sres["launches"])
     launches["paged_attention"] = serve["launches"]["paged_attention"]
-    launches["flash_attention"] = dvf["forward_launches"]["flash_attention"]
+    # the tensor-core variant's run: bf16, as the timed case
+    launches["flash_attention"] = dvf_bf16["forward_launches"][
+        "flash_attention"]
     kernels = [kernel_entry(name, kres[name], launches[name])
                for name in REPLACES]
     total_s = time.perf_counter() - t_start
@@ -868,8 +1126,10 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=t_build, build_log=build.build_log, kernels=kres,
+        build_s=t_build, build_log=build.build_log, hgmma=hgmma,
+        kernels=kres,
         slice=sres, serving=serve, roundtrip=rt, decode_vs_forward=dvf,
+        decode_vs_forward_bf16=dvf_bf16,
         total_s=total_s), indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

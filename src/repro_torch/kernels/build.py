@@ -39,10 +39,15 @@ SIGNATURES = {
     "gather_lines_launch": [_P, _P, _L, _L, _I, _P, _P],
     "probe_allocate_launch": (
         [_P] * 8 + [_L, _P, _L] + [_I] * 7 + [_P] * 14),
-    "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P],
+    "paged_attention_workspace_floats": [_I] * 5,
+    "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I] + [_P] * 3,
     "flash_attention_launch": (
         [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P]),
+    "flash_attention_tc_launch": (
+        [_P] * 3 + [_I] * 8 + [_L, _F, _P, _P]),
 }
+# entry points that return something other than a CUDA status (int)
+RESTYPES = {"paged_attention_workspace_floats": _L}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,7 +147,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
 

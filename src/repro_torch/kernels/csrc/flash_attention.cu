@@ -10,19 +10,41 @@
 //
 // Bound: operations.  4 * D flops per live (query, key) pair (q.k and p.v),
 // against 2 * D * (Sq + 2 * Skv) elements moved per head; at prefill
-// lengths the pairs dominate.  Design (simple, right first): one block per
-// (q tile of 64 rows, q head, batch); 256 threads as a 16 x 16 grid, each
-// thread owning 4 query rows (ty + 16 i) and, per kv tile of 32 keys, 2
-// score columns (tx + 16 j) and D / 16 output columns (tx + 16 k).  The Q
-// tile stays in shared memory as f32; K and V tiles are staged there with
-// 16-byte loads, K rows padded by one word so the score loop is free of
-// bank conflicts.  Row max and row sum are reduced across the 16 lanes of
-// a row with warp shuffles.  The kernel masks kv_pos < Skv (the ragged edge,
-// without padding copies), kv_pos <= q_pos (causal) and kv_pos > q_pos -
-// window (64-bit, so a window near 2^31 cannot overflow), and skips kv
-// tiles that no row of the q tile can see; the result is the same.  Arith
-// is f32 SIMT: the tensor-core (wgmma) version is later work.
+// lengths the pairs dominate.  Two kernels, chosen by the wrapper
+// (kernels/flash_attention.py) by an explicit rule on dtype and shape:
+//
+// * flash_fwd_tc_kernel, bf16 with D in {64, 128, 256}: tensor cores.  One
+//   CTA per (q tile of 128 rows, q head, batch) with two consumer
+//   warpgroups of 64 rows and one producer warp.  The producer loads the Q
+//   tile once and the K and V tiles (128 keys, 64 at D 256) through a
+//   two-stage shared-memory ring with TMA, 128-byte swizzled, guarded by
+//   full/empty mbarriers.  Each consumer computes S = Q K^T with wgmma
+//   (both operands K-major in shared memory), the online softmax in f32
+//   registers with exp2 and log2(e) folded into the scale, and O += P V
+//   with P converted to bf16 in registers as wgmma's A operand (its
+//   accumulator layout is the A-fragment layout) and V as the transposed,
+//   N-major B operand.  Masks are applied only on tiles that straddle the
+//   causal diagonal, the window edge or Skv; TMA zero-fills rows past Sq or
+//   Skv.  A row with no live key keeps m = -inf and l = 0 and writes 0.
+// * flash_fwd_kernel, every other case (f32, other head dims): f32 SIMT.
+//   One block per (q tile of 64 rows, q head, batch); 256 threads as a
+//   16 x 16 grid, each thread owning 4 query rows (ty + 16 i) and, per kv
+//   tile of 32 keys, 2 score columns (tx + 16 j) and D / 16 output columns
+//   (tx + 16 k).  Q, K and V tiles are staged in shared memory as f32, K
+//   rows padded by one word; row max and sum are reduced across the 16
+//   lanes of a row with shuffles.  f32 stays on this kernel: TF32 tensor
+//   cores keep 10 mantissa bits, too few for the f32 tolerance of 3e-5.
+//
+// Both mask kv_pos < Skv (the ragged edge, without padding copies), kv_pos
+// <= q_pos (causal) and kv_pos > q_pos - window (64-bit, so a window near
+// 2^31 cannot overflow), and skip kv tiles that no row of the q tile can
+// see; the result is the same.
+#include <cuda.h>        // CUtensorMap and its enums (types only)
+
+#include <cmath>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -238,4 +260,317 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                        has_window, window, scale, out, st)
              : launch_d<float>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal,
                                has_window, window, scale, out, st);
+}
+
+// ======================================================= tensor-core (bf16) ==
+namespace {
+
+constexpr int TC_BQ = 128;                 // query rows per CTA
+constexpr int TC_STAGES = 2;               // K/V ring depth
+constexpr int TC_CONSUMERS = 256;          // two warpgroups of 64 rows
+constexpr int TC_THREADS = TC_CONSUMERS + 32;   // and one producer warp
+
+template <int D>
+struct TcTile {
+  // the f32 O accumulator takes D / 2 registers a thread: at D 256 the kv
+  // tile shrinks to 64 keys so that S (BKV / 2) fits beside it
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int NCH = D / 64;       // 64-column (128-byte) chunks
+  static constexpr int Q_BYTES = TC_BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;   // one K or one V tile
+  static constexpr int BAR_OFF = Q_BYTES + TC_STAGES * 2 * KV_BYTES;
+  // + 1024 to align the base for the swizzle, + the mbarriers
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * TC_STAGES);
+};
+
+// Shared memory (1024-byte aligned): Q as NCH chunks of [128 rows][64], then
+// per stage K and V as NCH chunks of [BKV rows][64], each row 128 bytes with
+// TMA's 128-byte swizzle, then the barriers q_full, full[s], empty[s].
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q,    // (B*Hq, Sq, D) bf16
+    const __grid_constant__ CUtensorMap tm_k,    // (B*Hkv, Skv, D) bf16
+    const __grid_constant__ CUtensorMap tm_v,
+    int Hq, int Hkv, int Sq, int Skv, int causal, int has_window,
+    long long window, float scale_log2, __nv_bfloat16* __restrict__ out) {
+  using Tl = TcTile<D>;
+  constexpr int BKV = Tl::BKV, NCH = Tl::NCH;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t bars = base + Tl::BAR_OFF;
+  const uint32_t q_full = bars;
+
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int q0 = tile * TC_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q_last = min(q0 + TC_BQ, Sq) - 1;
+  int kv_end = Skv;
+  if (causal) kv_end = min(kv_end, q_last + 1);
+  const long long lo = has_window ? (long long)q0 - window + 1 : 0;
+  const int t_begin = lo > 0 ? (int)(lo / BKV) : 0;
+  const int n_tiles = max(0, (kv_end + BKV - 1) / BKV - t_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);                       // full
+      mbar_init(bars + 8 * (1 + TC_STAGES + s), TC_CONSUMERS);  // empty
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {
+    // producer warp: one thread issues every TMA load
+    if (tid == TC_CONSUMERS) {
+      mbar_arrive_expect_tx(q_full, Tl::Q_BYTES);
+      for (int c = 0; c < NCH; ++c)
+        tma_load_3d(q_s + c * TC_BQ * 128, &tm_q, q_full, c * 64, q0,
+                    b * Hq + h);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % TC_STAGES;
+        const uint32_t k_s = base + Tl::Q_BYTES + st * 2 * Tl::KV_BYTES;
+        const uint32_t v_s = k_s + Tl::KV_BYTES;
+        const uint32_t full = bars + 8 * (1 + st);
+        mbar_wait(bars + 8 * (1 + TC_STAGES + st), ((it / TC_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full, 2 * Tl::KV_BYTES);
+        const int kv0 = (t_begin + it) * BKV;
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_3d(k_s + c * BKV * 128, &tm_k, full, c * 64, kv0,
+                      b * Hkv + hk);
+          tma_load_3d(v_s + c * BKV * 128, &tm_v, full, c * 64, kv0,
+                      b * Hkv + hk);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; in the wgmma
+  // accumulator layout this thread holds rows r0 and r0 + 8, and for
+  // register i the column 8 (i / 4) + 2 (lane % 4) + (i % 2), row
+  // r0 + 8 ((i / 2) % 2)
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  const long long qa = q0 + wg * 64, qb = qa + 63;
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % TC_STAGES;
+    const uint32_t k_s = base + Tl::Q_BYTES + st * 2 * Tl::KV_BYTES;
+    const uint32_t v_s = k_s + Tl::KV_BYTES;
+    mbar_wait(bars + 8 * (1 + st), (it / TC_STAGES) & 1);
+
+    // S = Q K^T: D / 16 steps of k16, 32 bytes apart inside a 128-byte
+    // swizzled row, a chunk (rows x 128 bytes) apart every four steps
+    float s[BKV / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_b128(q_wg + c * TC_BQ * 128 + kk * 32, 16, 1024);
+        const uint64_t db = desc_b128(k_s + c * BKV * 128 + kk * 32, 16, 1024);
+        if constexpr (BKV == 128)
+          wgmma_ss_n128(s, da, db, c | kk);
+        else
+          wgmma_ss_n64(s, da, db, c | kk);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) reg_fence(s[i]);
+
+    const int kv0 = (t_begin + it) * BKV;
+    const bool edge = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > qa) ||
+                      (has_window && (long long)kv0 <= qb - window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const long long qp = r0 + 8 * ((i >> 1) & 1);
+        const long long kp = kv0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        const bool live = kp < Skv && (!causal || kp <= qp) &&
+                          (!has_window || kp > qp - window);
+        if (!live) s[i] = -INFINITY;
+      }
+    }
+
+    // online softmax in the log2 domain; the four lanes of a row reduce
+    // with shuffles
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float mb[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r] * scale_log2);
+      mb[r] = m_new == -INFINITY ? 0.f : m_new;   // no live key yet: p = 0
+      alpha[r] = exp2f(m_r[r] - mb[r]);
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(s[i] * scale_log2 - mb[r]);
+      rs[r] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // P as bf16 A fragments: the accumulator registers 8 kc .. 8 kc + 7 of
+    // a 64 x 16 slice are exactly the four A registers of that slice
+    uint32_t p[BKV / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[kc][j] = pack_bf16(s[8 * kc + 2 * j], s[8 * kc + 2 * j + 1]);
+
+    // O += P V: V [kv][d] is N-major; 16 kv rows (2048 bytes) a step, the
+    // next 64 columns a chunk (LBO) away
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) {
+      if constexpr (D == 64) {
+        wgmma_rs_n64_tb(o, p[kc], desc_b128(v_s + kc * 2048, BKV * 128, 1024));
+      } else {
+#pragma unroll
+        for (int j = 0; j < D / 128; ++j)
+          wgmma_rs_n128_tb(o + 64 * j, p[kc],
+                           desc_b128(v_s + 2 * j * BKV * 128 + kc * 2048,
+                                     BKV * 128, 1024));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) reg_fence(o[i]);
+    mbar_arrive(bars + 8 * (1 + TC_STAGES + st));   // the slot may refill
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  __nv_bfloat16* ob = out + ((int64_t)b * Hq + h) * (int64_t)Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < Sq) {
+      const float denom = fmaxf(l_r[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        const int col = 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(ob + (int64_t)row * D + col) =
+            pack_bf16(o[i] / denom, o[i + 1] / denom);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (BH, S, D) bf16 tensor seen as tiles of [rows][64 columns], 128-byte
+// swizzled; rows past S read as zeros.
+bool make_map(CUtensorMap* m, const void* ptr, int BH, int S, int D,
+              int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, int B, int Hq,
+              int Hkv, int Sq, int Skv, int causal, int has_window,
+              long long window, float scale, void* out, cudaStream_t st) {
+  using Tl = TcTile<D>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B * Hq, Sq, D, TC_BQ) ||
+      !make_map(&tk, k, B * Hkv, Skv, D, Tl::BKV) ||
+      !make_map(&tv, v, B * Hkv, Skv, D, Tl::BKV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tl::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, Hq, B);
+  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, Tl::SMEM, st>>>(
+      tq, tk, tv, Hq, Hkv, Sq, Skv, causal, has_window, window,
+      scale * 1.4426950408889634f, static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 only, D in {64, 128, 256}, Skv >= 1, Hq a multiple of Hkv, every
+// tensor contiguous and 16-byte aligned (the wrapper checks and chooses).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, int B, int Hq,
+                                         int Hkv, int Sq, int Skv, int D,
+                                         int causal, int has_window,
+                                         long long window, float scale,
+                                         void* out, void* stream) {
+  if (Hkv < 1 || Hq % Hkv != 0 || Skv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_tc<64>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
+                           window, scale, out, st);
+    case 128:
+      return launch_tc<128>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
+                            window, scale, out, st);
+    case 256:
+      return launch_tc<256>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
+                            window, scale, out, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,6 +1,21 @@
-"""Blockwise (flash) attention forward: the CUDA kernel's wrapper, its
-plain version and the launch count.  Kernel source:
-``csrc/flash_attention.cu``."""
+"""Blockwise (flash) attention forward: the CUDA kernels' wrapper, its
+plain version and the launch counts.  Kernel source:
+``csrc/flash_attention.cu``.
+
+Two kernels compute the same function; :func:`variant` chooses by dtype and
+shape, never by catching a failure:
+
+* ``"tc"`` (tensor cores: TMA loads, ``wgmma``, bf16 in and f32
+  accumulate) when q, k and v are bf16, the head dim D is 64, 128 or 256
+  and Skv >= 1;
+* ``"simt"`` (f32 SIMT arithmetic) for everything else: every f32 call
+  (TF32 tensor cores keep 10 mantissa bits, too few for f32's 3e-5) and
+  bf16 at other head dims.
+
+A failed build or launch of either raises.  ``launches`` counts every call;
+``variant_launches["tc"]`` and ``variant_launches["simt"]`` count which
+kernel ran.
+"""
 from __future__ import annotations
 
 import math
@@ -10,11 +25,24 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["flash_attention_cuda", "flash_attention_ref", "launches"]
+__all__ = ["flash_attention_cuda", "flash_attention_ref", "launches",
+           "variant", "variant_launches"]
 
 launches = _build.LaunchCount("flash_attention")
+variant_launches = {"tc": _build.LaunchCount("flash_attention.tc"),
+                    "simt": _build.LaunchCount("flash_attention.simt")}
 
 DTYPES = (torch.float32, torch.bfloat16)
+TC_HEAD_DIMS = (64, 128, 256)
+
+
+def variant(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel a call runs: ``"tc"`` for bf16 with D in (64, 128, 256)
+    and at least one key, ``"simt"`` otherwise."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS \
+            and k.shape[2] >= 1:
+        return "tc"
+    return "simt"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,11 +74,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention: window must be a Python int or "
                         "None")
     out = torch.empty_like(q)
-    status = _build.lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
-        int(causal), int(window is not None),
-        0 if window is None else window, 1.0 / math.sqrt(D),
-        int(q.dtype == torch.bfloat16), out.data_ptr(), _build.stream_ptr(q))
-    _build.check(status, "flash_attention")
+    kind = variant(q, k)
+    lib = _build.lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+            int(causal), int(window is not None),
+            0 if window is None else window, 1.0 / math.sqrt(D))
+    if kind == "tc":
+        status = lib.flash_attention_tc_launch(*args, out.data_ptr(),
+                                               _build.stream_ptr(q))
+    else:
+        status = lib.flash_attention_launch(
+            *args, int(q.dtype == torch.bfloat16), out.data_ptr(),
+            _build.stream_ptr(q))
+    _build.check(status, f"flash_attention ({kind})")
     launches.n += 1
+    variant_launches[kind].n += 1
     return out

@@ -1,5 +1,10 @@
-"""Paged decode attention: the CUDA kernel's wrapper, its plain version and
-the launch count.  Kernel source: ``csrc/paged_attention.cu``."""
+"""Paged decode attention: the CUDA kernels' wrapper, its plain version and
+the launch count.  Kernel source: ``csrc/paged_attention.cu`` (split-KV: a
+partial kernel per chunk of 128 logical positions, then a combine in
+logical order, both launched by one C entry on one stream; the C side owns
+the chunk size and the workspace's layout).  The CPU emulation of that
+split, ``paged_attention_chunked_ref``, is held against the JAX package by
+the tests."""
 from __future__ import annotations
 
 import math
@@ -52,11 +57,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_attention: needs Hq a multiple of Hkv, "
                          "Hq // Hkv <= 16, D a multiple of 8 and D <= 256")
     out = torch.empty_like(q)
-    status = _build.lib().paged_attention_launch(
+    lib = _build.lib()
+    # f32 workspace for the per-chunk partials, laid out by the C entry
+    ws = torch.empty((lib.paged_attention_workspace_floats(B, Hq, NP, page,
+                                                           D),),
+                     dtype=torch.float32, device=q.device)
+    status = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), B, P, page, Hkv, D,
-        Hq // Hkv, NP, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), out.data_ptr(),
-        _build.stream_ptr(q))
+        Hq // Hkv, NP, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+        ws.data_ptr(), out.data_ptr(), _build.stream_ptr(q))
     _build.check(status, "paged_attention")
     launches.n += 1
     return out

@@ -77,6 +77,52 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
+def paged_attention_chunked_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                page_table: torch.Tensor,
+                                seq_lens: torch.Tensor, *,
+                                chunk: int = 128) -> torch.Tensor:
+    """The split-KV arithmetic of ``csrc/paged_attention.cu`` in plain
+    PyTorch (float32, natural exp), for the tests: the logical positions cut
+    into chunks of ``chunk``; per chunk the partial (m, l, acc) over its
+    live positions, with m = NEG_INF, l = 0 and acc = 0 where none is live;
+    then the chunks combined in logical order, out = sum acc_i e^(m_i - M)
+    / max(sum l_i e^(m_i - M), 1e-30) with M = max m_i.  Same arguments
+    and result as :func:`paged_attention_ref`."""
+    B, Hq, D = q.shape
+    page, Hkv = k_pages.shape[2], k_pages.shape[3]
+    NP = page_table.shape[1]
+    group = Hq // Hkv
+    S = NP * page
+    nc = -(-S // chunk)
+    safe = torch.clamp(page_table, min=0).long()
+    bidx = torch.arange(B, device=q.device)[:, None]
+    k = k_pages[bidx, safe].permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    v = v_pages[bidx, safe].permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    pad = nc * chunk - S
+    k = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    hole = (page_table < 0).repeat_interleave(page, dim=1)
+    pos = torch.arange(nc * chunk, device=q.device)[None, :]
+    live = (pos < seq_lens[:, None]) & (pos < S) \
+        & ~torch.nn.functional.pad(hole, (0, pad))              # (B, nc*chunk)
+    qg = q.float().reshape(B, Hkv, group, D)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k) / math.sqrt(D)
+    live = live[:, None, None, :]
+    s = torch.where(live, s, NEG_INF).reshape(B, Hkv, group, nc, chunk)
+    live = live.reshape(B, 1, 1, nc, chunk)
+    m = s.max(-1).values                                        # (B,Hkv,G,nc)
+    p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgck,bhckd->bhgcd", p,
+                       v.reshape(B, Hkv, nc, chunk, D))
+    M = m.max(-1, keepdim=True).values
+    w = torch.exp(m - M)                                        # finite: m >= NEG_INF
+    l_tot = (l * w).sum(-1)
+    out = (acc * w[..., None]).sum(-2) / torch.clamp(l_tot, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 def gather_blocks_ref(data: torch.Tensor, slots: torch.Tensor,
                       off: torch.Tensor | None = None) -> torch.Tensor:
     """data: (num_lines, line_elems); slots: (n,) -> (n, line_elems), or

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 from _torch_port import fast_reference_compiles  # noqa: F401
 
@@ -85,6 +86,39 @@ def test_paged_attention_row_without_live_keys_is_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# The CUDA kernel's split-KV arithmetic (chunks of logical positions, a
+# partial (m, l, acc) per chunk, a combine in logical order), emulated in
+# plain PyTorch, against the JAX package.  Small chunks make the edge cases
+# appear at a small size.
+@pytest.mark.parametrize("chunk,page,lens,holes", [
+    # chunks wholly inside a hole page; sequence 0 ends mid-chunk
+    (4, 8, (13, 30), ((0, 1), (1, 0))),
+    # a sequence with no live key (every chunk empty); a chunk half hole
+    (16, 8, (0, 21), ((1, 1),)),
+    # chunks that straddle page edges; an empty chunk past a hole
+    (6, 8, (47, 5), ((0, 2), (1, 0))),
+])
+def test_paged_split_combine_matches_jax(chunk, page, lens, holes):
+    B, Hq, Hkv, D, P, NP = 2, 4, 2, 16, 8, 6
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    kp = rng.standard_normal((B, P, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((B, P, page, Hkv, D)).astype(np.float32)
+    pt = np.stack([rng.permutation(P)[:NP] for _ in range(B)]).astype(
+        np.int32)
+    for b, i in holes:
+        pt[b, i] = -1
+    sl = np.asarray(lens, np.int32)
+    out = tref.paged_attention_chunked_ref(
+        *(torch.from_numpy(x) for x in (q, kp, vp, pt, sl)), chunk=chunk)
+    assert out.dtype == torch.float32 and out.shape == (B, Hq, D)
+    j = [jnp.asarray(x) for x in (q, kp, vp, pt, sl)]
+    want_ref = jref.paged_attention_ref(*j)
+    want_pal = jops.paged_attention(*j, impl="pallas", interpret=True)
+    for want in (want_ref, want_pal):
+        np.testing.assert_allclose(_np(out), _np(want), **TOL["float32"])
+
+
 # tests/test_kernels.py's flash sweep: GQA with a window and ragged
 # non-causal in both dtypes, MQA in f32
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window,dtype", [
@@ -122,11 +156,32 @@ def test_flash_attention_huge_window_is_global():
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype,D,Skv,kind", [
+    ("bfloat16", 64, 8, "tc"), ("bfloat16", 128, 8, "tc"),
+    ("bfloat16", 256, 8, "tc"), ("bfloat16", 32, 8, "simt"),
+    ("bfloat16", 136, 8, "simt"), ("bfloat16", 128, 0, "simt"),
+    ("float32", 128, 8, "simt"), ("float32", 64, 8, "simt"),
+])
+def test_flash_variant_rule(dtype, D, Skv, kind):
+    """The wrapper's explicit rule: bf16 with D in (64, 128, 256) and at
+    least one key runs the tensor-core kernel, everything else the SIMT
+    one (decided from dtype and shape alone, never from a failure)."""
+    from repro_torch.kernels.flash_attention import variant
+
+    dt = getattr(torch, dtype)
+    q = torch.empty((1, 2, 4, D), dtype=dt)
+    k = torch.empty((1, 1, Skv, D), dtype=dt)
+    assert variant(q, k) == kind
+
+
 @pytest.mark.cuda
 def test_cuda_launch_counts_rise_and_attention_matches_plain():
     """On the card: each of the five kernels' launch count rises by one when
     its op runs on CUDA tensors, and the attention kernels' outputs are
-    within TOL of their plain versions."""
+    within TOL of their plain versions.  bf16 flash at D 64 and 128 runs the
+    tensor-core kernel, f32 and bf16 at D 32 the SIMT one; the paged
+    kernel's output does not change, bit for bit, when the physical pages
+    are permuted along with the page table."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
     from repro_torch.kernels import (cache_probe, flash_attention,
@@ -162,11 +217,27 @@ def test_cuda_launch_counts_rise_and_attention_matches_plain():
         torch.testing.assert_close(
             out.float(), ref.paged_attention_ref(q, kp, vp, pt, sl).float(),
             **tol)
-        x = torch.randn(3, 2, 4, 70, 32, device="cuda").to(dt)
-        n0 = flash_attention.launches.n
-        out = flash_attention.flash_attention_cuda(x[0], x[1], x[2],
-                                                   causal=True, window=16)
-        assert flash_attention.launches.n == n0 + 1
-        torch.testing.assert_close(
-            out.float(), ref.flash_attention_ref(
-                x[0], x[1], x[2], causal=True, window=16).float(), **tol)
+        # the same pages at other physical slots give the same bits
+        perm = torch.stack([torch.randperm(kp.shape[1], device=dev)
+                            for _ in range(kp.shape[0])])
+        bidx = torch.arange(kp.shape[0], device=dev)[:, None]
+        kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+        kp2[bidx, perm] = kp
+        vp2[bidx, perm] = vp
+        pt2 = torch.where(pt >= 0, torch.gather(perm, 1, pt.clamp(min=0).long())
+                          .to(torch.int32), pt)
+        assert torch.equal(
+            paged_attention.paged_attention_cuda(q, kp2, vp2, pt2, sl), out)
+        for D, kind in ((64, "tc" if dtype == "bfloat16" else "simt"),
+                        (128, "tc" if dtype == "bfloat16" else "simt"),
+                        (32, "simt")):
+            x = torch.randn(3, 2, 4, 70, D, device="cuda").to(dt)
+            n0 = flash_attention.launches.n
+            v0 = flash_attention.variant_launches[kind].n
+            out = flash_attention.flash_attention_cuda(x[0], x[1], x[2],
+                                                       causal=True, window=16)
+            assert flash_attention.launches.n == n0 + 1
+            assert flash_attention.variant_launches[kind].n == v0 + 1, kind
+            torch.testing.assert_close(
+                out.float(), ref.flash_attention_ref(
+                    x[0], x[1], x[2], causal=True, window=16).float(), **tol)
