@@ -12,7 +12,13 @@ Phases, each of which must pass or the script exits non-zero:
 3. each BaM kernel against its plain PyTorch version on the card, at the
    main path's shapes (a 16,384-set x 4-way directory, 262,144 keys,
    gathers of 2^28 lanes), bit-identical, and timed with CUDA events beside
-   its bound;
+   its bound.  Both probes also bit-identical at W 2, 4, 8, 16 and 32 under
+   probe_allocate's six policy variants, on a skewed wavefront (65,536 keys
+   in 8 sets, buckets far over W), on all-hit and empty wavefronts, and
+   across two runs of one input; each probe's ``device_ms`` (a CUDA graph
+   of 20 calls), ``host_us`` (host time to issue a call), ``floor_ms``
+   (device time of a one-key call, the fixed cost) and skewed device time
+   are recorded beside its eager ``ms``;
 4. each attention kernel against its plain version within
    ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16), and every
    bf16 output also against the plain version computed in f32 from the
@@ -62,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -139,20 +146,23 @@ def cuda_graph_time_ms(fn, calls=20, reps=10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def host_us_per_call(fn, calls=200) -> float:
-    """Host time to issue one call, in microseconds: ``calls`` back-to-back
-    calls on the host clock, the device idle at the start (its queue takes
-    the launches while they are issued)."""
+def host_us_per_call(fn, calls=200, readings=5) -> float:
+    """Host time to issue one call, in microseconds: the median of
+    ``readings`` readings of ``calls`` back-to-back calls on the host clock,
+    the device idle at the start of each (its queue takes the launches
+    while they are issued)."""
     import torch
 
     fn()
+    out = []
+    for _ in range(readings):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
+    return statistics.median(out)
 
 
 def bound_ms(nbytes: float) -> float:
@@ -248,6 +258,135 @@ def unique_keys(m, hi, tags, gen, dev):
     return keys
 
 
+def skewed_keys(m, S, n_sets, gen, dev):
+    """m distinct keys, shuffled, whose hashes all fall into ``n_sets`` of
+    the S sets: each set's bucket of misses is far over its ways."""
+    import torch
+    from repro_torch.utils import mix_hash
+
+    target = torch.zeros((S,), dtype=torch.bool, device=dev)
+    target[torch.randperm(S, generator=gen, device=dev)[:n_sets]] = True
+    found, n, base, chunk = [], 0, 0, 1 << 24
+    while n < m:
+        cand = torch.arange(base, base + chunk, device=dev, dtype=torch.int32)
+        cand = cand[target[(mix_hash(cand) % S).long()]]
+        found.append(cand)
+        n += cand.numel()
+        base += chunk
+    keys = torch.cat(found)[:m]
+    return keys[torch.randperm(m, generator=gen, device=dev)]
+
+
+def probe_inputs(dev, seed, S=16384, m=262144, W=WAYS, skew_m=65536,
+                 skew_sets=8):
+    """The main path's probe inputs: a directory, m unique keys (a quarter
+    resident) and a skewed wavefront of ``skew_m`` keys over ``skew_sets``
+    sets."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = make_directory(S, W, gen, dev)
+    keys = unique_keys(m, 32 * S * W, d["tags"], gen, dev)
+    skew = skewed_keys(skew_m, S, skew_sets, gen, dev)
+    return d, keys, skew, gen
+
+
+def probe_times(d, keys, skew) -> dict:
+    """Times of the two probe kernels: ``ms`` back-to-back eager calls,
+    ``device_ms`` a CUDA graph of 20 calls (the host's cost of issuing
+    each call left out), ``host_us`` the host's time to issue one call, and
+    ``floor_ms`` the device time of a call with one key, the kernel's fixed
+    cost; for probe_allocate also the skewed wavefront's device time."""
+    from repro_torch.kernels.cache_probe import cache_probe_cuda
+    from repro_torch.kernels.probe_allocate import probe_allocate_cuda
+
+    dargs = (d["tags"], d["owner"], d["refcount"], d["dirty"],
+             d["speculative"], d["clock_hand"])
+    valid, skew_valid = keys >= 0, skew >= 0
+
+    def pa(ks, v):
+        return lambda: probe_allocate_cuda(*dargs, ks, v)
+
+    def cp(ks):
+        return lambda: cache_probe_cuda(d["tags"], ks, d["owner"], 0)
+
+    out = {}
+    for name, full, one in (
+            ("probe_allocate", pa(keys, valid), pa(keys[:1], valid[:1])),
+            ("cache_probe", cp(keys), cp(keys[:1]))):
+        out[name] = dict(ms=cuda_time_ms(full, iters=50),
+                         device_ms=cuda_graph_time_ms(full),
+                         host_us=host_us_per_call(full),
+                         floor_ms=cuda_graph_time_ms(one))
+    out["probe_allocate"]["skewed_device_ms"] = cuda_graph_time_ms(
+        pa(skew, skew_valid))
+    out["cache_probe"]["skewed_device_ms"] = cuda_graph_time_ms(cp(skew))
+    return out
+
+
+PA_VARIANTS = [dict(), dict(tenant=1), dict(way_lo=1, way_hi=3),
+               dict(spec_insert=True), dict(protect_hits=False),
+               dict(tenant=2, way_lo=0, way_hi=2, spec_insert=True)]
+
+
+def probe_checks(dev, gen, S, m):
+    """Both probes bit-identical to their plain versions at W 2, 4, 8, 16
+    and 32 (m keys at the main path's W, a quarter of them at the others):
+    probe_allocate under the six policy variants, on unique keys and on a
+    wavefront with duplicate and negative keys, with protect slots and an
+    alloc mask; cache_probe with and without owners.  Then the all-hit and
+    the empty wavefronts."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cache_probe import cache_probe_cuda
+    from repro_torch.kernels.probe_allocate import probe_allocate_cuda
+
+    for W in (2, 4, 8, 16, 32):
+        mw = m if W == WAYS else m // 4
+        d = make_directory(S, W, gen, dev)
+        keys = unique_keys(mw, 32 * S * W, d["tags"], gen, dev)
+        dup = keys.clone()
+        dup[mw // 2:] = keys[torch.randint(0, mw // 2, (mw - mw // 2,),
+                                           generator=gen, device=dev)]
+        dup[::97] = -1                    # negative keys, duplicate sets
+        prot = torch.randint(-1, S * W, (mw // 4,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        amask = torch.rand((mw,), generator=gen, device=dev) < 0.8
+        owner_mixed = torch.randint(0, 2, (S, W), generator=gen, device=dev,
+                                    dtype=torch.int32)
+        dargs = (d["tags"], owner_mixed, d["refcount"], d["dirty"],
+                 d["speculative"], d["clock_hand"])
+        for kw in PA_VARIANTS:
+            for ks in (keys, dup):
+                args = (*dargs, ks, ks >= 0, amask, prot)
+                require_equal(f"probe_allocate W={W} {kw}",
+                              probe_allocate_cuda(*args, **kw),
+                              ref.probe_allocate_ref(*args, **kw))
+        for owner, tenant in ((owner_mixed, 1), (d["owner"], 0), (None, 0)):
+            for ks in (keys, dup):
+                require_equal(f"cache_probe W={W} owner={owner is not None}",
+                              cache_probe_cuda(d["tags"], ks, owner, tenant),
+                              ref.cache_probe_ref(d["tags"], ks, owner,
+                                                  tenant))
+    # all-hit: every key resident and the caller's, so nothing is granted
+    d = make_directory(S, WAYS, gen, dev)
+    dargs = (d["tags"], d["owner"], d["refcount"], d["dirty"],
+             d["speculative"], d["clock_hand"])
+    resident = d["tags"][d["tags"] >= 0]
+    resident = resident[torch.randperm(resident.numel(), generator=gen,
+                                       device=dev)]
+    empty = resident[:0]
+    for name, ks in (("all-hit", resident), ("empty", empty)):
+        out = probe_allocate_cuda(*dargs, ks, ks >= 0)
+        require_equal(f"probe_allocate {name}", out,
+                      ref.probe_allocate_ref(*dargs, ks, ks >= 0))
+        if not bool(out[0].all()) or bool(out[3].any()):
+            raise AssertionError(f"probe_allocate {name}: a key missed")
+        require_equal(f"cache_probe {name}",
+                      cache_probe_cuda(d["tags"], ks, d["owner"], 0),
+                      ref.cache_probe_ref(d["tags"], ks, d["owner"], 0))
+
+
 def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
     import torch
     from repro_torch.kernels import ref
@@ -256,61 +395,62 @@ def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
     from repro_torch.kernels.probe_allocate import probe_allocate_cuda
     from repro_torch.utils import mix_hash
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
     W = WAYS
-    d = make_directory(S, W, gen, dev)
-    keys = unique_keys(m, 32 * S * W, d["tags"], gen, dev)
+    d, keys, skew, gen = probe_inputs(dev, seed, S, m, W)
     valid = keys >= 0
     sets_touched = torch.unique(mix_hash(keys) % S).numel()
     results = {}
 
-    # -- cache_probe: tenant 0 (the main path) and a foreign-owner variant
+    # -- both probes bit-identical to their plain versions: the six
+    #    policy variants at every way count the kernels take up to 32, a
+    #    skewed wavefront (8 sets, buckets far over W), all-hit and empty
+    #    wavefronts, and two runs of one input
+    probe_checks(dev, gen, S, m)
     owner_mixed = torch.randint(0, 2, (S, W), generator=gen, device=dev,
                                 dtype=torch.int32)
-    for owner, tenant in ((owner_mixed, 1), (d["owner"], 0)):
-        cp_err = require_equal(
-            "cache_probe", cache_probe_cuda(d["tags"], keys, owner, tenant),
-            ref.cache_probe_ref(d["tags"], keys, owner, tenant))
+    dargs = (d["tags"], owner_mixed, d["refcount"], d["dirty"],
+             d["speculative"], d["clock_hand"])
+    prot = torch.randint(-1, S * W, (64,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for kw in (dict(), dict(tenant=2, way_lo=0, way_hi=2, spec_insert=True)):
+        args = (*dargs, skew, skew >= 0, None, prot)
+        require_equal(f"probe_allocate skewed {kw}",
+                      probe_allocate_cuda(*args, **kw),
+                      ref.probe_allocate_ref(*args, **kw))
+    main = (d["tags"], d["owner"], d["refcount"], d["dirty"],
+            d["speculative"], d["clock_hand"], keys, valid)
+    skewed = (*main[:6], skew, skew >= 0)
+    for name, args in (("main", main), ("skewed", skewed)):
+        first = probe_allocate_cuda(*args)
+        require_equal(f"probe_allocate {name}", first,
+                      ref.probe_allocate_ref(*args))
+        require_equal(f"probe_allocate {name}, second run", first,
+                      probe_allocate_cuda(*args))
+        first = cache_probe_cuda(d["tags"], args[6], d["owner"], 0)
+        require_equal(f"cache_probe {name}", first,
+                      ref.cache_probe_ref(d["tags"], args[6], d["owner"], 0))
+        require_equal(f"cache_probe {name}, second run", first,
+                      cache_probe_cuda(d["tags"], args[6], d["owner"], 0))
+    log(f"probes: bit-identical to their plain versions at W 2-32 under the "
+        f"six variants, on the skewed, all-hit and empty wavefronts, and "
+        f"across two runs")
+    times = probe_times(d, keys, skew)
     hit, _ = cache_probe_cuda(d["tags"], keys, d["owner"], 0)
     results["cache_probe"] = dict(
-        ms=cuda_time_ms(lambda: cache_probe_cuda(d["tags"], keys,
-                                                 d["owner"], 0)),
+        **times["cache_probe"],
         plain_ms=cuda_time_ms(lambda: ref.cache_probe_ref(
             d["tags"], keys, d["owner"], 0)),
         bound_ms=bound_ms(m * 4 + m * 5 + sets_touched * W * 4 * 2),
-        max_abs_err=cp_err, shape=f"S={S} W={W} m={m}",
+        max_abs_err=0.0, shape=f"S={S} W={W} m={m}",
         hit_fraction=float(hit.float().mean()))
-
-    # -- probe_allocate: the six policy variants, bit-identical
-    dargs = (d["tags"], owner_mixed, d["refcount"], d["dirty"],
-             d["speculative"], d["clock_hand"])
-    dup = keys.clone()
-    dup[m // 2:] = keys[torch.randint(0, m // 2, (m - m // 2,),
-                                      generator=gen, device=dev)]
-    dup[::97] = -1                        # negative keys, duplicate sets
-    prot = torch.randint(-1, S * W, (m // 4,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    amask = torch.rand((m,), generator=gen, device=dev) < 0.8
-    variants = [dict(), dict(tenant=1), dict(way_lo=1, way_hi=3),
-                dict(spec_insert=True), dict(protect_hits=False),
-                dict(tenant=2, way_lo=0, way_hi=2, spec_insert=True)]
-    for kw in variants:
-        for ks in (keys, dup):
-            args = (*dargs, ks, ks >= 0, amask, prot)
-            require_equal(f"probe_allocate {kw}",
-                          probe_allocate_cuda(*args, **kw),
-                          ref.probe_allocate_ref(*args, **kw))
-    main = (d["tags"], d["owner"], d["refcount"], d["dirty"],
-            d["speculative"], d["clock_hand"], keys, valid)
-    pa_err = require_equal("probe_allocate main", probe_allocate_cuda(*main),
-                           ref.probe_allocate_ref(*main))
     ok = probe_allocate_cuda(*main)[3]
     results["probe_allocate"] = dict(
-        ms=cuda_time_ms(lambda: probe_allocate_cuda(*main)),
+        **times["probe_allocate"],
         plain_ms=cuda_time_ms(lambda: ref.probe_allocate_ref(*main)),
         bound_ms=bound_ms(m * 4 + m * 1 + sets_touched * (W * 14 + 4)
                           + m * 15),
-        max_abs_err=pa_err, shape=f"S={S} W={W} m={m}",
+        max_abs_err=0.0, shape=f"S={S} W={W} m={m}",
+        skewed_shape=f"m={skew.numel()} keys over 8 sets",
         granted_fraction=float(ok.float().mean()))
 
     # -- gather_blocks: the element gather the wait path runs, at a CC
@@ -1033,8 +1173,9 @@ def kernel_entry(name, r, launches):
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r.get("bound_by", "bytes"),
              "library_ms": r.get("library_ms")}
-    if "variant" in r:                 # flash: the kernel that was timed
-        entry["variant"] = r["variant"]
+    for key in ("device_ms", "host_us", "floor_ms", "variant"):
+        if key in r:        # device time, host time a call, fixed cost;
+            entry[key] = r[key]    # flash: the kernel that was timed
     return entry
 
 
@@ -1069,7 +1210,9 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     log(f"kernels built in {t_build:.3f} s: {lib_path}")
     for line in build.build_log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "stack frame",
+                                   "Function properties")) \
+                or line.startswith("=="):
             log("  " + line.strip())
     hgmma = hgmma_counts(lib_path)
     log(f"HGMMA instructions per tensor-core flash kernel: {hgmma}")
@@ -1086,6 +1229,8 @@ def main() -> int:
             + (f", library {lib:.6f} ms" if lib is not None else "")
             + (f", device {v['device_ms']:.6f} ms, host "
                f"{v['host_us']:.3f} us a call" if "device_ms" in v else "")
+            + (f", floor (m = 1) {v['floor_ms']:.6f} ms, skewed device "
+               f"{v['skewed_device_ms']:.6f} ms" if "floor_ms" in v else "")
             + (f", {v['variant']} kernel" if "variant" in v else "")
             + f", max abs err {v['max_abs_err']}) at {v['shape']}")
     log(f"kernel gather_blocks (line): {kres['gather_blocks']['line_ms']:.6f}"

@@ -34,12 +34,13 @@ def cache_probe_cuda(tags: torch.Tensor, keys: torch.Tensor,
             raise ValueError("cache_probe: owner and tags shapes differ")
     num_sets, ways = tags.shape
     m = keys.shape[0]
-    hit = torch.empty((m,), dtype=torch.bool, device=dev)
-    slot = torch.empty((m,), dtype=torch.int32, device=dev)
+    # one buffer: the slots as int32, then the hit flags as one byte each
+    out = torch.empty((5 * m,), dtype=torch.uint8, device=dev)
     status = _build.lib().cache_probe_launch(
         tags.data_ptr(), owner.data_ptr() if owner is not None else None,
-        keys.data_ptr(), m, num_sets, ways, int(tenant), hit.data_ptr(),
-        slot.data_ptr(), _build.stream_ptr(keys))
+        keys.data_ptr(), m, num_sets, ways, int(tenant), out.data_ptr(),
+        _build.stream_ptr(keys))
     _build.check(status, "cache_probe")
     launches.n += 1
-    return hit, slot
+    slot, hit = out.split_with_sizes([4 * m, m])
+    return hit.view(torch.bool), slot.view(torch.int32)

@@ -15,7 +15,7 @@ MAX_WAYS = 32
 
 
 def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+    if t.dtype is not dtype or t.shape != shape or t.device != device \
             or not t.is_contiguous():
         raise ValueError(
             f"probe_allocate: {name} must be a contiguous {dtype} tensor of "
@@ -51,33 +51,28 @@ def probe_allocate_cuda(tags, owner, refcount, dirty, speculative,
     if protect_slots is not None:
         _check("protect_slots", protect_slots, torch.int32,
                (protect_slots.shape[0],), dev)
-    keys_eff = torch.where(valid, keys, -1)
-
-    def out(dtype):
-        return torch.empty((m,), dtype=dtype, device=dev)
-
-    hit, hslot, way, ok = out(torch.bool), out(torch.int32), \
-        out(torch.int32), out(torch.bool)
-    evk, evd = out(torch.int32), out(torch.bool)
-    # scratch: per-key set and miss flag, the protect overlay, and the
-    # per-set bucket counts / offsets / fill cursors / bucket entries
-    sets, miss, bucket = out(torch.int32), out(torch.bool), out(torch.int32)
-    prot = torch.empty((num_sets * ways,), dtype=torch.uint8, device=dev)
-    count, offsets, cursor = (torch.empty((num_sets,), dtype=torch.int32,
-                                          device=dev) for _ in range(3))
     p = 0 if protect_slots is None else protect_slots.shape[0]
-    status = _build.lib().probe_allocate_launch(
+    lib = _build.lib()
+    # one buffer: hit_slot, way and evicted key as int32, then hit, ok and
+    # evicted dirty as one byte each, then the kernel's scratch (16-byte
+    # aligned; the kernel resets what it needs itself)
+    off = -(-15 * m // 16) * 16
+    words = lib.probe_allocate_scratch_words(m, num_sets, ways)
+    buf = torch.empty((off + 4 * words,), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    status = lib.probe_allocate_launch(
         tags.data_ptr(), owner.data_ptr(), refcount.data_ptr(),
         dirty.data_ptr(), speculative.data_ptr(), clock_hand.data_ptr(),
-        keys_eff.data_ptr(),
-        alloc_mask.data_ptr() if alloc_mask is not None else None, m,
+        keys.data_ptr(), valid.data_ptr(),
+        alloc_mask.data_ptr() if alloc_mask is not None else None,
         protect_slots.data_ptr() if protect_slots is not None else None, p,
-        num_sets, ways, int(tenant), int(way_lo), int(way_hi),
-        int(bool(spec_insert)), int(bool(protect_hits)),
-        hit.data_ptr(), hslot.data_ptr(), way.data_ptr(), ok.data_ptr(),
-        evk.data_ptr(), evd.data_ptr(), sets.data_ptr(), miss.data_ptr(),
-        prot.data_ptr(), count.data_ptr(), offsets.data_ptr(),
-        cursor.data_ptr(), bucket.data_ptr(), _build.stream_ptr(keys))
+        m, num_sets, ways, int(tenant), int(way_lo), int(way_hi),
+        int(bool(spec_insert)), int(bool(protect_hits)), base, base + off,
+        words, _build.stream_ptr(keys))
     _build.check(status, "probe_allocate")
     launches.n += 1
-    return hit, hslot, way, ok, evk, evd
+    hslot, way, evk, hit, ok, evd, _ = buf.split_with_sizes(
+        [4 * m] * 3 + [m] * 3 + [buf.numel() - 15 * m])
+    return (hit.view(torch.bool), hslot.view(torch.int32),
+            way.view(torch.int32), ok.view(torch.bool),
+            evk.view(torch.int32), evd.view(torch.bool))

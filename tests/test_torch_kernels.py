@@ -120,6 +120,83 @@ def test_probe_allocate_matches_pallas_and_ref(shape, vi):
                                       err_msg=f"{name} vs ref {kw}")
 
 
+# Wide sets (W 16 and 32, where a set's lanes fill half or all of a warp
+# on the card) and a skewed wavefront (every key in 2 of 16 sets, so each
+# set's misses run far past its ways and past the kernel's bucket of 8
+# entries a lane).  Held against the JAX package's jnp oracle only: its
+# Pallas kernel takes over a second to trace at each of these shapes.
+WIDE = [((8, 16, 40), 0), ((4, 32, 48), 5)]
+
+
+def _skewed_inputs(S=16, W=4, m=160, n_sets=2):
+    """m keys whose hashes fall into n_sets of the S sets (the resident
+    ones among them), with protect slots and an alloc mask."""
+    rng = np.random.default_rng(5)
+    d = _directory(rng, S, W)
+    cand = np.arange(64 * S * W)
+    hot = rng.choice(S, n_sets, replace=False)
+    cand = cand[np.isin(_np_hash(cand) % S, hot)]
+    keys = rng.permutation(cand)[:m]
+    resident = d["tags"][hot].reshape(-1)
+    resident = resident[resident >= 0]
+    keys[:resident.size] = resident
+    keys = rng.permutation(keys).astype(np.int32)
+    prot = rng.integers(-1, S * W, 4).astype(np.int32)
+    amask = rng.random(m) < 0.9
+    return d, keys, prot, amask
+
+
+def _pa_vs_jax_ref(d, keys, prot, amask, kw):
+    out_t = _torch_pa(d, keys, prot, amask, kw)
+    jargs = [jnp.asarray(d[k]) for k in ("tags", "owner", "refcount",
+                                         "dirty", "speculative",
+                                         "clock_hand")]
+    out_r = jops.probe_allocate(*jargs, jnp.asarray(keys), impl="ref",
+                                protect_slots=jnp.asarray(prot),
+                                alloc_mask=jnp.asarray(amask), **kw)
+    for name, a, r in zip(PA_NAMES, out_t, out_r):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r),
+                                      err_msg=f"{name} vs ref {kw}")
+    return out_t
+
+
+@pytest.mark.parametrize("shape,vi", WIDE)
+def test_probe_allocate_wide_sets_match_ref(shape, vi):
+    S, W, m = shape
+    out = _pa_vs_jax_ref(*_pa_inputs(S, W, m, vi), VARIANTS[vi])
+    assert bool(out[3].any()) and bool(out[0].any())
+
+
+def test_probe_allocate_skewed_buckets_match_ref():
+    d, keys, prot, amask = _skewed_inputs()
+    sets = _np_hash(keys) % 16
+    assert len(set(sets.tolist())) == 2 and np.bincount(sets).max() > 32
+    out = _pa_vs_jax_ref(d, keys, prot, amask, {})
+    assert bool(out[3].any()) and bool(out[0].any())
+    # a set grants at most W ways
+    assert int(out[3].sum()) <= 2 * 4
+
+
+@pytest.mark.parametrize("W", [16, 32])
+def test_cache_probe_wide_sets_match_ref(W):
+    rng = np.random.default_rng(W)
+    S, m = 4, 200
+    tags = _consistent_tags(rng, S, W, 4 * S * W)
+    owner = rng.integers(0, 2, (S, W)).astype(np.int32)
+    keys = np.concatenate([tags.reshape(-1), rng.integers(-3, 4 * S * W,
+                                                          m - S * W)])
+    keys = rng.permutation(keys).astype(np.int32)
+    hit_t, slot_t = tops.cache_probe(torch.from_numpy(tags),
+                                     torch.from_numpy(keys),
+                                     owner=torch.from_numpy(owner), tenant=1)
+    hit_j, slot_j = jops.cache_probe(jnp.asarray(tags), jnp.asarray(keys),
+                                     owner=jnp.asarray(owner), tenant=1,
+                                     impl="ref")
+    np.testing.assert_array_equal(hit_t.numpy(), np.asarray(hit_j))
+    np.testing.assert_array_equal(slot_t.numpy(), np.asarray(slot_j))
+    assert bool(hit_t.any()) and not bool(hit_t.all())
+
+
 def test_probe_allocate_all_hit_and_empty():
     """The no-miss branch (all lanes hit or invalid) and m = 0."""
     rng = np.random.default_rng(3)
@@ -207,9 +284,9 @@ def test_cuda_kernels_match_plain_versions():
     from repro_torch.kernels.gather_blocks import gather_blocks_cuda
     from repro_torch.kernels.probe_allocate import probe_allocate_cuda
 
-    for (S, W, m), vi in CASES:
-        kw = VARIANTS[vi]
-        d, keys, prot, amask = _pa_inputs(S, W, m, vi)
+    for (d, keys, prot, amask), kw in [
+            (_pa_inputs(S, W, m, vi), VARIANTS[vi])
+            for (S, W, m), vi in CASES + WIDE] + [(_skewed_inputs(), {})]:
         t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
         args = (t["tags"], t["owner"], t["refcount"], t["dirty"],
                 t["speculative"], t["clock_hand"],
@@ -220,7 +297,7 @@ def test_cuda_kernels_match_plain_versions():
         a = probe_allocate_cuda(*args, valid, *extra, **kw)
         b = ref.probe_allocate_ref(*args, valid, *extra, **kw)
         for name, x, y in zip(PA_NAMES, a, b):
-            assert torch.equal(x, y), (name, S, W, m, kw)
+            assert torch.equal(x, y), (name, d["tags"].shape, kw)
         hit, slot = cache_probe_cuda(t["tags"], args[-1], owner=t["owner"],
                                      tenant=kw.get("tenant", 0))
         rh, rs = ref.cache_probe_ref(t["tags"], args[-1],
