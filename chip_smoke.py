@@ -13,12 +13,13 @@ Phases, each of which must pass or the script exits non-zero:
    main path's shapes (a 16,384-set x 4-way directory, 262,144 keys,
    gathers of 2^28 lanes), bit-identical, and timed with CUDA events beside
    its bound.  Both probes also bit-identical at W 2, 4, 8, 16 and 32 under
-   probe_allocate's six policy variants, on a skewed wavefront (65,536 keys
-   in 8 sets, buckets far over W), on all-hit and empty wavefronts, and
-   across two runs of one input; each probe's ``device_ms`` (a CUDA graph
-   of 20 calls), ``host_us`` (host time to issue a call), ``floor_ms``
-   (device time of a one-key call, the fixed cost) and skewed device time
-   are recorded beside its eager ``ms``;
+   probe_allocate's seven policy variants, on a skewed wavefront (65,536
+   keys in 8 sets, buckets far over W), on all-hit and empty wavefronts,
+   across two runs of one input, and as the readahead and prefetch paths
+   call them (512-line windows over a 65,536-set directory); each probe's
+   ``device_ms`` (a CUDA graph of 20 calls), ``host_us`` (host time to
+   issue a call), ``floor_ms`` (device time of a one-key call, the fixed
+   cost) and skewed device time are recorded beside its eager ``ms``;
 4. each attention kernel against its plain version within
    ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16), and every
    bf16 output also against the plain version computed in f32 from the
@@ -39,33 +40,61 @@ Phases, each of which must pass or the script exits non-zero:
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
    quarter of the edge list), 16 SQs x 1024 over 4 simulated Optane P5800X
    devices; depths and labels checked against scipy; every BaM kernel's
-   launch count must rise;
-6. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
+   launch count must rise; then BFS and CC again with ``prefetch=True``
+   (frontier hints, an all-edge warm-up), equal to the first runs;
+6. the taxi analytics: ``make_taxi_table`` at 2^27 rows (six float32
+   dependent columns of 512 MiB in pinned host storage, the filter column
+   on the device), 512-byte lines, a 128 MiB cache a column, selectivity
+   5e-4, four simulated Optane P5800X.  Q1-Q6 through ``run_query``: every
+   gathered value equal to the host column bit for bit, each value within
+   1e-4 relative of ``run_query_baseline``; then three ``scan_column``
+   passes over the first 2^26 rows of ``trip_dist`` (an array of their
+   own, cut for the run's time) at 65,536 rows a wavefront (demand only,
+   readahead of 512 lines, readahead with 4 tokens in flight): one
+   checksum, numpy's within 1e-5 relative, readahead raising the hit rate
+   with a prefetch accuracy of at least 0.99 and no rise in amplification;
+   then the first 24 wavefronts of the 4-token readahead scan once more,
+   on the card and on the CPU (the plain versions) from the cold state:
+   tickets, readahead keys, values and state bit-identical after each op;
+7. fault-injected rounds: a 2^24-element float32 array over 4 devices under
+   ``FaultModel(0.05, 2.0, retry_budget=1, failed_devices=(1,))``, 16
+   seeded read/write/flush ops of 65,536 lanes on the card and on the CPU
+   (the plain versions): values, error and drop masks, cache, rings and
+   metrics bit-identical, a numpy oracle of the surviving lanes exact,
+   errored read lanes 0, no pin or in-flight bit left, fault counters
+   non-zero; then 18 ops with readahead of 512 lines on, sequential reads
+   and prefetch hints among them, held the same way (prefetches issued and
+   hit);
+8. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
    ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
    512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
    32 new tokens each; every request done, pages spilled and fetched, and
    ``paged_attention`` launched 48 times per engine step;
-7. the spill/fetch round trip at full size: B 2 after 600 decode steps,
+9. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
-8. decode against forward: full width, depth cut to 4 layers, B 2, S 256:
+10. decode against forward: full width, depth cut to 4 layers, B 2, S 256:
    the last-token logits of 256 ``decode_step``s (paged kernel) and of
    ``forward`` (flash kernel), in float32 (TF32 off for matmuls and cuDNN;
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
    flash, which must have run) within atol 0.15 (``DVF_LIMITS``).
 
-With ``--profile``, one more BFS and two CC rounds, and a window of engine
-steps in phase 6, run under torch.profiler (tables in
-``chiprun_out/profile_*.txt``), and phase 6 also reports the host seconds
+With ``--profile``, one more BFS and two CC rounds, the first 64
+wavefronts of the demand and readahead scans, and a window of engine
+steps in phase 8, run under torch.profiler (tables in
+``chiprun_out/profile_*.txt``), and phase 8 also reports the host seconds
 spent in each KV-manager call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches, times and bound.  Details go to
+lists each kernel with its launches, times and bound (the BaM kernels
+also with their launches in each phase of 5-7; every phase sets the counts
+to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import statistics
@@ -167,6 +196,28 @@ def host_us_per_call(fn, calls=200, readings=5) -> float:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def counted_run(counters, fn):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after; returns ``(result, launches, wall seconds)``, the wall on
+    the host clock around work ending in a synchronise."""
+    import torch
+
+    for c in counters.values():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {k: c.n for k, c in counters.items()}, wall
+
+
+def require_launched(name, launches) -> None:
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
 
 
 def _bits(t):
@@ -326,16 +377,21 @@ def probe_times(d, keys, skew) -> dict:
 
 PA_VARIANTS = [dict(), dict(tenant=1), dict(way_lo=1, way_hi=3),
                dict(spec_insert=True), dict(protect_hits=False),
-               dict(tenant=2, way_lo=0, way_hi=2, spec_insert=True)]
+               dict(tenant=2, way_lo=0, way_hi=2, spec_insert=True),
+               dict(spec_insert=True, protect_hits=False)]   # readahead
+# The speculative calls of the readahead and prefetch paths at the taxi
+# scan's shape: a 65,536-set x 4-way directory, one 512-line window.
+READAHEAD_SHAPE = dict(S=65536, W=4, m=512)
 
 
 def probe_checks(dev, gen, S, m):
     """Both probes bit-identical to their plain versions at W 2, 4, 8, 16
     and 32 (m keys at the main path's W, a quarter of them at the others):
-    probe_allocate under the six policy variants, on unique keys and on a
+    probe_allocate under the seven policy variants, on unique keys and on a
     wavefront with duplicate and negative keys, with protect slots and an
     alloc mask; cache_probe with and without owners.  Then the all-hit and
-    the empty wavefronts."""
+    the empty wavefronts, and the speculative calls at the readahead
+    path's shape (:func:`readahead_probe_checks`)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.cache_probe import cache_probe_cuda
@@ -385,6 +441,42 @@ def probe_checks(dev, gen, S, m):
         require_equal(f"cache_probe {name}",
                       cache_probe_cuda(d["tags"], ks, d["owner"], 0),
                       ref.cache_probe_ref(d["tags"], ks, d["owner"], 0))
+    readahead_probe_checks(dev, gen, **READAHEAD_SHAPE)
+
+
+def readahead_probe_checks(dev, gen, S, W, m):
+    """probe_allocate as ``submit`` calls it for readahead (a window of m
+    consecutive lines, -1 past the array's end, speculative insert, the
+    wavefront's 2m hit and granted slots protected, the probe's own hits
+    not, an alloc mask that skips the just-evicted lines) and for an
+    explicit prefetch (speculative insert only), then cache_probe's re-probe
+    of the window, all bit-identical to the plain versions.  Two windows:
+    one over lines partly resident, one wholly past the resident range."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cache_probe import cache_probe_cuda
+    from repro_torch.kernels.probe_allocate import probe_allocate_cuda
+
+    d = make_directory(S, W, gen, dev)
+    dargs = (d["tags"], d["owner"], d["refcount"], d["dirty"],
+             d["speculative"], d["clock_hand"])
+    for base in (int(d["tags"].max()) // 2, 8 * S * W):
+        ks = torch.arange(base, base + m, dtype=torch.int32, device=dev)
+        ks[-m // 8:] = -1                          # clamped at the end
+        prot = torch.randint(-1, S * W, (2 * m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        amask = torch.rand((m,), generator=gen, device=dev) < 0.9
+        for name, kw, extra in (
+                ("readahead", dict(spec_insert=True, protect_hits=False),
+                 (amask, prot)),
+                ("prefetch", dict(spec_insert=True), ())):
+            args = (*dargs, ks, ks >= 0, *extra)
+            require_equal(f"probe_allocate {name} S={S} m={m} base={base}",
+                          probe_allocate_cuda(*args, **kw),
+                          ref.probe_allocate_ref(*args, **kw))
+        require_equal(f"cache_probe readahead S={S} m={m} base={base}",
+                      cache_probe_cuda(d["tags"], ks, d["owner"], 0),
+                      ref.cache_probe_ref(d["tags"], ks, d["owner"], 0))
 
 
 def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
@@ -432,8 +524,8 @@ def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
         require_equal(f"cache_probe {name}, second run", first,
                       cache_probe_cuda(d["tags"], args[6], d["owner"], 0))
     log(f"probes: bit-identical to their plain versions at W 2-32 under the "
-        f"six variants, on the skewed, all-hit and empty wavefronts, and "
-        f"across two runs")
+        f"seven variants, on the skewed, all-hit and empty wavefronts, at "
+        f"the readahead path's shape, and across two runs")
     times = probe_times(d, keys, skew)
     hit, _ = cache_probe_cuda(d["tags"], keys, d["owner"], 0)
     results["cache_probe"] = dict(
@@ -917,6 +1009,36 @@ def slice_phase(dev, log2_nodes, seed, counters, profile=False):
     if missing:
         raise AssertionError(f"main path never launched {missing}")
 
+    # the same traversals with frontier hints (BFS) and an all-edge warm-up
+    # (CC) through the readahead lane
+    phase_launches = {}
+    for name, fn, want in (
+            ("bfs_prefetch", lambda: bfs(g, 0, prefetch=True), depth),
+            ("cc_prefetch", lambda: cc(g, prefetch=True), labels)):
+        (got, st), phase_launches[name], wall = counted_run(counters, fn)
+        require_launched(name, phase_launches[name])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: result differs from the run "
+                                 f"without prefetch")
+        m = st.metrics.summary()
+        base = runs[name.split("_")[0]]
+        runs[name] = dict(
+            wall_s=wall, edges_traversed=m["requests"],
+            edges_per_s=m["requests"] / wall, hit_rate=m["hit_rate"],
+            amplification=m["amplification"], misses=m["misses"],
+            prefetch_issued=m["prefetch_issued"],
+            prefetch_hits=m["prefetch_hits"],
+            prefetch_accuracy=m["prefetch_accuracy"],
+            bytes_from_storage=m["bytes_from_storage"],
+            sim_time_s=m["sim_time_s"], dropped=m["dropped"])
+        log(f"{name}: wall {wall:.6f} s (without prefetch "
+            f"{base['wall_s']:.6f} s), hit rate {m['hit_rate']:.6f} "
+            f"({base['hit_rate']:.6f}), I/O amplification "
+            f"{m['amplification']:.6f} ({base['amplification']:.6f}), "
+            f"prefetch issued {m['prefetch_issued']:.0f}, hits "
+            f"{m['prefetch_hits']:.0f}; launches {phase_launches[name]}; "
+            f"equal to the run without prefetch")
+
     if profile:
         profile_runs(g)
     t_check, n_comp = scipy_check(indptr, dst, depth, labels)
@@ -926,13 +1048,396 @@ def slice_phase(dev, log2_nodes, seed, counters, profile=False):
     if not np.isfinite(runs["bfs"]["sim_time_s"]):
         raise AssertionError("non-finite simulated time")
     return dict(graph_build_s=t_graph, bam_build_s=t_bam, runs=runs,
-                launches=launches, launches_per_bfs=per_bfs,
+                launches=launches, phase_launches=phase_launches,
+                launches_per_bfs=per_bfs,
                 launches_per_cc=per_cc, peak_device_bytes=peak,
                 scipy_check_s=t_check, n_vertices=n, n_edges=int(len(dst)),
                 components=n_comp, vertices_reached=reached)
 
 
 # --------------------------------------------------------------- phase 6 --
+TAXI_ROWS = 1 << 27           # cut from the paper's 1.7B rows
+TAXI_WAVE = 65536             # rows a scan wavefront: 512 lines of 512 B
+TAXI_SCAN_ROWS = 1 << 26      # the scans' rows, cut for the run's time
+
+
+def column_like(arr, st, data, device, prefetch=None):
+    """A ``BamArray`` and its initial state over the 1-D host array
+    ``data`` on ``device``, with ``arr``'s line, cache, ring and SSD
+    configuration (``st`` is a state of ``arr``)."""
+    from repro_torch.core.bam_array import BamArray
+
+    return BamArray.build(
+        data.reshape(1, -1), block_elems=arr.block_elems,
+        num_sets=st.cache.num_sets, ways=st.cache.ways,
+        num_queues=st.queues.num_queues, queue_depth=st.queues.depth,
+        ssd=arr.ssd, prefetch=prefetch, device=device)
+
+
+def taxi_phase(dev, seed, counters, rows=TAXI_ROWS, wave=TAXI_WAVE,
+               scan_rows=TAXI_SCAN_ROWS, profile=False):
+    """Q1-Q6 on a ``rows``-row table, then three scans of the first
+    ``scan_rows`` rows of ``trip_dist`` (an array of their own with the
+    column's configuration, so readahead stops at its end), ``wave`` rows a
+    wavefront; with ``profile``, the first 64 wavefronts of the demand and
+    readahead scans once more under torch.profiler (after the checks)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.analytics import taxi as T
+    from repro_torch.core.prefetch import PrefetchConfig
+
+    t0 = time.perf_counter()
+    tbl = T.make_taxi_table(rows, selectivity=5e-4, block_bytes=512,
+                            cache_bytes=1 << 27, seed=seed, n_devices=4,
+                            device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    rows_np = np.flatnonzero(tbl.host["pickup_gid"] == T.WILLIAMSBURG)
+    rows_t = torch.from_numpy(rows_np).to(dev)
+    log(f"taxi: table of {rows} rows, {len(rows_np)} matching, built "
+        f"in {t_build:.3f} s (host numpy + pinned columns)")
+
+    queries, phase_launches = {}, {}
+    for q, dep in T.QUERIES.items():
+        (res, io), launches, wall = counted_run(
+            counters, lambda: T.run_query(tbl, q))
+        require_launched(f"taxi {q}", launches)
+        phase_launches[f"taxi_{q}"] = launches
+        for name in dep:
+            v = io["values"][name]
+            got = v[rows_t].cpu().numpy()
+            if not np.array_equal(got.view(np.int32),
+                                  tbl.host[name][rows_np].view(np.int32)):
+                raise AssertionError(f"taxi {q}: {name} gathered values "
+                                     f"differ from the host column")
+            if int(torch.count_nonzero(v)) != int(np.count_nonzero(got)):
+                raise AssertionError(f"taxi {q}: {name} has a value outside "
+                                     f"the matching rows")
+        t0 = time.perf_counter()
+        base, bio = T.run_query_baseline(tbl, q)
+        t_base = time.perf_counter() - t0
+        rel = abs(res["value"] - base["value"]) / abs(base["value"])
+        if not np.isfinite(res["value"]) or rel > 1e-4:
+            raise AssertionError(f"taxi {q}: {res['value']} against the "
+                                 f"baseline's {base['value']} (rel {rel})")
+        queries[q] = dict(
+            wall_s=wall, value=res["value"], baseline_value=base["value"],
+            rel_err=rel, bytes_moved_total=io["bytes_moved_total"],
+            amplification=io["amplification"],
+            baseline_bytes_moved_total=bio["bytes_moved_total"],
+            baseline_amplification=bio["amplification"],
+            baseline_host_s=t_base, launches=launches)
+        log(f"taxi {q}: wall {wall:.6f} s, value {res['value']} (baseline "
+            f"{base['value']}, rel {rel:.3e}), bytes moved "
+            f"{io['bytes_moved_total']:.0f} (baseline "
+            f"{bio['bytes_moved_total']:.0f}), amplification "
+            f"{io['amplification']:.6f} (baseline "
+            f"{bio['amplification']:.6f}); gathered values bit-identical "
+            f"to the host column; launches {launches}")
+        del res, io
+
+    host = tbl.host["trip_dist"][:scan_rows]
+    want = float(host.astype(np.float64).sum())
+    arr0, cold = column_like(tbl.cols["trip_dist"], tbl.states["trip_dist"],
+                             host, dev)
+    stbl = T.TaxiTable(n_rows=scan_rows, pickup=tbl.pickup[:scan_rows],
+                       cols={}, states={}, host={"trip_dist": host})
+    del tbl                         # the six pinned columns go here
+    gc.collect()
+    ra = PrefetchConfig(enabled=True, window=wave // 128)
+    scans = {}
+    for name, cfg, window in (("demand", PrefetchConfig(), 0),
+                              ("readahead", ra, 0),
+                              ("readahead_w4", ra, 4)):
+        stbl.cols["trip_dist"] = arr0.with_prefetch(cfg)
+        stbl.states["trip_dist"] = cold.clone()
+        (total, m), launches, wall = counted_run(
+            counters, lambda: T.scan_column(stbl, "trip_dist",
+                                            wavefront=wave,
+                                            window=window))
+        require_launched(f"scan {name}", launches)
+        phase_launches[f"scan_{name}"] = launches
+        scans[name] = dict(
+            wall_s=wall, checksum=total, hit_rate=m["hit_rate"],
+            misses=m["misses"], prefetch_issued=m["prefetch_issued"],
+            prefetch_hits=m["prefetch_hits"],
+            prefetch_accuracy=m["prefetch_accuracy"],
+            amplification=m["amplification"], sim_time_s=m["sim_time_s"],
+            launches=launches)
+        log(f"scan {name}: wall {wall:.6f} s, checksum {total!r}, hit rate "
+            f"{m['hit_rate']:.6f}, misses {m['misses']:.0f}, prefetch "
+            f"issued/hits {m['prefetch_issued']:.0f}/"
+            f"{m['prefetch_hits']:.0f}, amplification "
+            f"{m['amplification']:.6f}, sim_time_s {m['sim_time_s']:.6f}; "
+            f"launches {launches}")
+    sums = {s_["checksum"] for s_ in scans.values()}
+    rel = abs(scans["demand"]["checksum"] - want) / want
+    if len(sums) != 1 or rel > 1e-5:
+        raise AssertionError(f"scan checksums {sums} (numpy {want}, rel "
+                             f"{rel})")
+    demand = scans["demand"]
+    for name in ("readahead", "readahead_w4"):
+        s_ = scans[name]
+        if not (s_["hit_rate"] > demand["hit_rate"]
+                and s_["prefetch_accuracy"] >= 0.99
+                and s_["amplification"] <= demand["amplification"]):
+            raise AssertionError(f"scan {name}: hit rate {s_['hit_rate']} "
+                                 f"(demand {demand['hit_rate']}), accuracy "
+                                 f"{s_['prefetch_accuracy']}, amplification "
+                                 f"{s_['amplification']} (demand "
+                                 f"{demand['amplification']})")
+    log(f"scans: one checksum, numpy's {want!r} within rel {rel:.3e}; "
+        f"readahead raised the hit rate, accuracy >= 0.99, amplification "
+        f"did not rise")
+    scans["readahead_w4"]["vs_cpu"] = scan_vs_cpu(
+        stbl, arr0.with_prefetch(ra), cold.clone(), wave, window=4)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        head = dataclasses.replace(stbl, n_rows=64 * wave)
+        for name, cfg in (("scan_demand", PrefetchConfig()),
+                          ("scan_readahead", ra)):
+            head.cols["trip_dist"] = arr0.with_prefetch(cfg)
+            head.states["trip_dist"] = cold.clone()
+            torch.cuda.synchronize()
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                T.scan_column(head, "trip_dist", wavefront=wave)
+                torch.cuda.synchronize()
+                t_prof = time.perf_counter() - t0
+            scans[name.split("_", 1)[1]]["profile"] = profile_table(
+                name, prof, t_prof)
+    del stbl, cold, arr0
+    return dict(rows=rows, scan_rows=scan_rows,
+                matching_rows=int(len(rows_np)),
+                build_s=t_build, queries=queries, scans=scans,
+                numpy_checksum=want, phase_launches=phase_launches)
+
+
+def scan_vs_cpu(tbl, arr, st, wave, window, waves=24) -> dict:
+    """The first ``waves`` wavefronts of a ``scan_column`` of
+    ``trip_dist`` through ``arr`` (readahead on) with ``window`` tokens in
+    flight, from state ``st`` on the card and from a CPU array built alike
+    from the host column (the plain versions of the kernels): the tokens'
+    readahead keys and tickets after each submit, and the values and the
+    whole cache, ring and metrics state after each wait, bit-identical."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.core.bam_array import IORequest
+    from repro_torch.interop import state_to_numpy
+
+    t0 = time.perf_counter()
+    ca, cst = column_like(arr, st, tbl.host["trip_dist"], "cpu",
+                          prefetch=arr.prefetch_cfg)
+    sides = {"card": [arr, st, collections.deque()],
+             "cpu": [ca, cst, collections.deque()]}
+
+    def same(what, a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if a.dtype != b.dtype or not np.array_equal(
+                a.view(np.int32) if a.dtype == np.float32 else a,
+                b.view(np.int32) if b.dtype == np.float32 else b):
+            raise AssertionError(f"scan vs CPU: {what} differs")
+
+    def wait_both(i):
+        out = {}
+        for side, (a, s_, pend) in sides.items():
+            s_, v = a.wait(s_, pend.popleft())
+            sides[side][1] = s_
+            out[side] = v
+        same(f"values of wavefront {i}", out["card"], out["cpu"])
+        gs, cs = state_to_numpy(sides["card"][1]), state_to_numpy(
+            sides["cpu"][1])
+        for k in cs:
+            if not np.array_equal(gs[k], cs[k]):
+                raise AssertionError(f"scan vs CPU: {k} differs after "
+                                     f"wavefront {i}")
+
+    claimed = 0
+    for i in range(waves):
+        toks = {}
+        for side, (a, s_, pend) in sides.items():
+            idx = torch.arange(i * wave, (i + 1) * wave, dtype=torch.int32,
+                               device=a.device)
+            s_, tok = a.submit(s_, IORequest.read(idx))
+            sides[side][1] = s_
+            pend.append(tok)
+            toks[side] = tok
+        for f in ("ticket", "ra_keys", "ra_ticket"):
+            same(f"{f} of wavefront {i}", getattr(toks["card"], f),
+                 getattr(toks["cpu"], f))
+        claimed += int((toks["cpu"].ra_keys >= 0).sum())
+        if len(sides["card"][2]) >= window:
+            wait_both(i - window + 1)
+    for j in range(len(sides["card"][2])):
+        wait_both(waves - window + 1 + j)
+    if claimed == 0:
+        raise AssertionError("scan vs CPU: readahead claimed no line")
+    wall = time.perf_counter() - t0
+    log(f"scan vs CPU: {waves} wavefronts of {wave} rows with {window} "
+        f"tokens in flight, readahead claims {claimed} lines; tickets, "
+        f"readahead keys, values and state bit-identical to the CPU run "
+        f"after every op ({wall:.3f} s)")
+    return dict(waves=waves, window=window, claimed=claimed, wall_s=wall)
+
+
+# --------------------------------------------------------------- phase 7 --
+# The fault phase's readahead run: sequential reads ("seq", each going on
+# where the last one stopped) under a 512-line readahead window, and
+# prefetch hints ("hint") whose lanes the next random read reads.
+FAULT_READAHEAD_OPS = ["seq", "seq", "hint", "read", "write", "seq", "seq",
+                       "flush", "read", "hint", "read", "seq", "write",
+                       "seq", "seq", "write", "read", "flush"]
+
+
+def fault_phase(dev, seed, counters, size=1 << 24, lanes=65536,
+                readahead=False):
+    """16 seeded read/write/flush ops of ``lanes`` lanes on a ``size``
+    element array under an enabled fault model, on the card and on the
+    CPU, held bit for bit and against a numpy oracle.  With ``readahead``
+    the array reads ahead 512 lines and the ops are
+    ``FAULT_READAHEAD_OPS``, with sequential reads and prefetch hints."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bam_array import BamArray, IORequest
+    from repro_torch.core.prefetch import PrefetchConfig
+    from repro_torch.core.ssd import (ArrayOfSSDs, FaultModel,
+                                      INTEL_OPTANE_P5800X)
+    from repro_torch.interop import state_to_numpy
+
+    fault = FaultModel(transient_error_rate=0.05, tail_latency_mult=2.0,
+                       retry_budget=1, failed_devices=(1,), seed=0)
+    rng = np.random.default_rng(seed + 5)
+    data = rng.standard_normal(size).astype(np.float32)
+    cfg = dict(block_elems=128, num_sets=4096, ways=4, num_queues=16,
+               queue_depth=4096,
+               ssd=ArrayOfSSDs(INTEL_OPTANE_P5800X, 4, fault=fault),
+               prefetch=PrefetchConfig(enabled=readahead,
+                                       window=lanes // 128))
+    if readahead:
+        rng = np.random.default_rng(seed + 6)
+        kinds = FAULT_READAHEAD_OPS
+    else:
+        kinds = rng.permutation(["read"] * 8 + ["write"] * 6
+                                + ["flush"] * 2)
+    ops, hint = [], None
+    pos = int(rng.integers(0, size // 2)) if readahead else 0
+    for kind in kinds:
+        if kind == "seq":
+            ops.append((kind, np.arange(pos, pos + lanes, dtype=np.int32),
+                        None))
+            pos += lanes
+        elif kind in ("read", "hint"):
+            idx = rng.integers(-2, size + 3, lanes).astype(np.int32)
+            if kind == "read" and hint is not None:
+                idx, hint = hint, None
+            elif kind == "hint":
+                hint = idx
+            ops.append((kind, idx, None))
+        elif kind == "write":
+            ops.append((kind, rng.choice(size, lanes, replace=False).astype(
+                np.int32), rng.standard_normal(lanes).astype(np.float32)))
+        else:
+            ops.append((kind, None, None))
+
+    def run(device):
+        arr, st = BamArray.build(data, device=device, **cfg)
+        outs = []
+        for kind, idx, vals in ops:
+            if kind == "flush":
+                st = arr.flush(st)
+                outs.append((None, state_to_numpy(st)))
+                continue
+            i = torch.from_numpy(idx).to(device)
+            if kind == "write":
+                req = IORequest.write(i, torch.from_numpy(vals).to(device))
+            elif kind == "hint":
+                req = IORequest.prefetch(i)
+            else:
+                req = IORequest.read(i)
+            st, tok = arr.submit(st, req)
+            st, v, e = arr.wait_ex(st, tok)
+            outs.append(((v.cpu().numpy(), e.cpu().numpy(),
+                          tok.dropped_mask.cpu().numpy()),
+                         state_to_numpy(st)))
+        st = arr.flush(st)
+        return arr, st, outs
+
+    name = "faults_readahead" if readahead else "faults"
+    (ga, gst, gouts), launches, wall = counted_run(counters, lambda: run(dev))
+    require_launched(name, launches)
+    t0 = time.perf_counter()
+    ca, cst, couts = run("cpu")
+    t_cpu = time.perf_counter() - t0
+    gouts.append((None, state_to_numpy(gst)))        # after the last flush
+    couts.append((None, state_to_numpy(cst)))
+    for i, ((gv, gs), (cv, cs)) in enumerate(zip(gouts, couts)):
+        for j, (a, b) in enumerate(zip(gv or (), cv or ())):
+            if a.dtype != b.dtype or not np.array_equal(
+                    a.view(np.int32) if a.dtype == np.float32 else a,
+                    b.view(np.int32) if b.dtype == np.float32 else b):
+                raise AssertionError(f"{name} op {i}: output {j} differs "
+                                     f"from the CPU run")
+        for k in cs:
+            if not np.array_equal(gs[k], cs[k]):
+                raise AssertionError(f"{name} op {i}: {k} differs from the "
+                                     f"CPU run")
+    oracle, n_err = data.copy(), 0
+    for (kind, idx, vals), (out, _) in zip(ops, gouts[:-1]):
+        if kind in ("read", "seq"):
+            v, e, _ = out
+            ok = (idx >= 0) & (idx < size) & ~e
+            if not np.array_equal(v[ok], oracle[idx[ok]]) or v[e].any():
+                raise AssertionError(f"{name}: a read lane disagrees with "
+                                     f"the numpy oracle")
+            n_err += int(e.sum())
+        elif kind == "hint":
+            v, e, _ = out
+            if v.any():
+                raise AssertionError(f"{name}: a prefetch returned values")
+            n_err += int(e.sum())
+        elif kind == "write":
+            e = out[1]
+            oracle[idx[~e]] = vals[~e]
+            n_err += int(e.sum())
+    if not (np.array_equal(ga.storage.data.numpy().reshape(-1)[:size],
+                           oracle)
+            and torch.equal(ga.storage.data, ca.storage.data)):
+        raise AssertionError(f"{name}: storage after the last flush differs "
+                             "from the numpy oracle or the CPU run")
+    if bool(gst.cache.refcount.any()) or bool(gst.cache.inflight.any()):
+        raise AssertionError(f"{name}: a pin or in-flight bit was left")
+    m = gst.metrics.summary()
+    if not (m["transient_errors"] > 0 and m["retries"] > 0
+            and m["failed_commands"] > 0 and m["degraded_reads"] == n_err
+            and m["dev_reads"][1] == 0):
+        raise AssertionError(f"{name}: counters {m}")
+    if readahead and not (m["prefetch_issued"] > 0
+                          and m["prefetch_hits"] > 0):
+        raise AssertionError(f"{name}: no prefetch issued or hit: {m}")
+    log(f"{name}: {len(ops)} ops of {lanes} lanes on a {size}-element array "
+        f"over 4 devices (device 1 failed): card {wall:.6f} s, CPU "
+        f"{t_cpu:.6f} s; values, error and drop masks, cache, rings and "
+        f"metrics bit-identical to the CPU run; oracle exact; transient "
+        f"errors {m['transient_errors']:.0f}, retries {m['retries']:.0f}, "
+        f"failed commands {m['failed_commands']:.0f}, degraded lanes "
+        f"{n_err}, dropped {m['dropped']:.0f}, prefetch issued/hits "
+        f"{m['prefetch_issued']:.0f}/{m['prefetch_hits']:.0f}; launches "
+        f"{launches}")
+    return dict(ops=[o[0] for o in ops], lanes=lanes, size=size, wall_s=wall,
+                cpu_s=t_cpu, degraded_lanes=n_err,
+                transient_errors=m["transient_errors"], retries=m["retries"],
+                failed_commands=m["failed_commands"], dropped=m["dropped"],
+                prefetch_issued=m["prefetch_issued"],
+                prefetch_hits=m["prefetch_hits"],
+                sim_time_s=m["sim_time_s"], launches=launches)
+
+
+# --------------------------------------------------------------- phase 8 --
 def serving_phase(dev, seed, counters, profile=False):
     """qwen2.5-14b at full width and depth, bf16, through the engine."""
     import numpy as np
@@ -1088,7 +1593,7 @@ def roundtrip_phase(api, model, seed):
                 bit_identical=True, peak_device_bytes=peak)
 
 
-# Limits of phase 8 (last-token logits of 256 decode steps against forward,
+# Limits of phase 10 (last-token logits of 256 decode steps against forward,
 # full width, 4 layers) as (atol, rtol).  float32 (TF32 off): the two paths
 # sum in different orders, nothing else.  bfloat16: forward's tensor-core
 # flash kernel rounds P to bf16 before P.V, and the two paths round K, V and
@@ -1184,8 +1689,9 @@ def main() -> int:
     ap.add_argument("--log2-nodes", type=int, default=23)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more BFS and two CC rounds, and a "
-                         "window of serving steps, with torch.profiler")
+                    help="trace one more BFS and two CC rounds, 64 "
+                         "wavefronts of two taxi scans, and a window of "
+                         "serving steps, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1246,7 +1752,14 @@ def main() -> int:
             "flash_attention.simt": flash_attention.variant_launches["simt"]}
     sres = slice_phase(dev, args.log2_nodes, args.seed, bam,
                        profile=args.profile)
+    gc.collect()                    # the graph's pinned store goes here
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    taxi = taxi_phase(dev, args.seed, bam, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults = fault_phase(dev, args.seed, bam)
+    faults_ra = fault_phase(dev, args.seed, bam, readahead=True)
     torch.cuda.empty_cache()
     api, model, serve = serving_phase(dev, args.seed, attn,
                                       profile=args.profile)
@@ -1264,6 +1777,13 @@ def main() -> int:
         "flash_attention"]
     kernels = [kernel_entry(name, kres[name], launches[name])
                for name in REPLACES]
+    phases = dict(sres["phase_launches"], **taxi["phase_launches"],
+                  faults=faults["launches"],
+                  faults_readahead=faults_ra["launches"])
+    for entry in kernels:
+        if entry["name"] in bam:
+            entry["phase_launches"] = {p: n[entry["name"]]
+                                       for p, n in phases.items()}
     total_s = time.perf_counter() - t_start
     log(f"chip_smoke: all phases passed in {total_s:.3f} s")
     out_dir = ROOT / "chiprun_out"
@@ -1273,7 +1793,9 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda,
         build_s=t_build, build_log=build.build_log, hgmma=hgmma,
         kernels=kres,
-        slice=sres, serving=serve, roundtrip=rt, decode_vs_forward=dvf,
+        slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
+        serving=serve, roundtrip=rt,
+        decode_vs_forward=dvf,
         decode_vs_forward_bf16=dvf_bf16,
         total_s=total_s), indent=1))
     log(smi)

@@ -22,6 +22,7 @@ __all__ = [
     "CacheState", "make_cache", "probe", "probe_allocate", "fill",
     "acquire", "release", "mark_dirty", "promote", "mark_inflight",
     "clear_inflight", "grant_bookkeeping", "fill_complete",
+    "invalidate_failed",
 ]
 
 
@@ -248,14 +249,36 @@ def grant_bookkeeping(cache: CacheState, n_hits: torch.Tensor,
     return acquire(cache, pin_slots)
 
 
-def fill_complete(cache: CacheState, slots: torch.Tensor, ok: torch.Tensor,
-                  lines: torch.Tensor) -> CacheState:
-    """Completion: :func:`fill` plus :func:`clear_inflight` on the same
-    slots."""
-    sel = torch.nonzero(ok).squeeze(1)
-    if sel.numel() > 0:
-        idx = slots[sel].to(torch.int64)
-        cache.data.index_copy_(0, idx, lines[sel].to(cache.data.dtype))
-        cache.inflight.view(-1)[idx] = False
+def fill_complete(cache: CacheState, slots: torch.Tensor,
+                  pend: torch.Tensor, lines: torch.Tensor,
+                  ok: torch.Tensor | None = None) -> CacheState:
+    """Completion, in place: fill the ``pend`` slots with ``lines`` and
+    clear their in-flight bit.  Under the fault model ``ok`` is each row's
+    command status: a ``pend & ~ok`` slot is not filled but
+    :func:`invalidate_failed`.  The rows are selected on the host; a wait
+    with nothing pending skips it all."""
+    sel = torch.nonzero(pend).squeeze(1)
+    if sel.numel() == 0:
+        return cache
+    good = sel if ok is None else sel[ok[sel]]
+    if good.numel() > 0:
+        cache.data.index_copy_(0, slots[good].to(torch.int64),
+                               lines[good].to(cache.data.dtype))
+    cache.inflight.view(-1)[slots[sel].to(torch.int64)] = False
+    if ok is not None:
+        invalidate_failed(cache, slots, pend & ~ok)
     return cache
 
+
+def invalidate_failed(cache: CacheState, slots: torch.Tensor,
+                      mask: torch.Tensor) -> CacheState:
+    """Free the granted, never-filled lines whose fetch errored past its
+    retry budget, in place: tag -1, in-flight, speculative and dirty bits
+    cleared, the data left as it is (a line is never filled from a failed
+    fetch).  Pins stay with their ``release``."""
+    live = mask & (slots >= 0)
+    # bamlint: ignore[BAM104] -- a host loop over four directory fields
+    for flag, value in ((cache.tags, -1), (cache.inflight, False),
+                        (cache.speculative, False), (cache.dirty, False)):
+        _put_(flag.view(-1), slots, live, value)
+    return cache

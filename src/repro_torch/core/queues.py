@@ -1,8 +1,9 @@
 """High-throughput I/O queues: BaM's §III-C I/O stack as a prefix sum.
 
 Port of ``repro.core.queues``, restricted to the fused path: the SQ ring
-pool, the fused multi-segment enqueue and the closed-form drain.  The rings
-are updated in place where the reference rebuilds a ``QueueState``.
+pool, the fused multi-segment enqueue (routing around hard-failed devices)
+and the closed-form drain with its fault accounting.  The rings are updated
+in place where the reference rebuilds a ``QueueState``.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.ssd import _alive_devices
 from repro_torch.kernels import ops as _ops
 
 __all__ = ["QueueState", "make_queues", "enqueue", "enqueue_segments",
@@ -24,13 +26,16 @@ PRIO_READAHEAD = 1   # speculative readahead fills
 @dataclasses.dataclass
 class QueueState:
     """A pool of NVMe submission queues, split into ``n_devices`` equal
-    groups: queues ``[d*group, (d+1)*group)`` belong to device ``d``."""
+    groups: queues ``[d*group, (d+1)*group)`` belong to device ``d``.
+    ``failed_devices`` (static, mirroring the SSD array's ``FaultModel``)
+    lists hard-failed channels, whose blocks route to the survivors."""
 
     num_queues: int
     depth: int
     n_devices: int
     stripe_blocks: int
     n_tenants: int
+    failed_devices: tuple
     sq_key: torch.Tensor       # (num_queues, depth) int32, -1 free
     sq_dst: torch.Tensor       # (num_queues, depth) int32 destination slot
     sq_is_write: torch.Tensor  # (num_queues, depth) bool
@@ -58,7 +63,7 @@ class QueueState:
 
 def make_queues(num_queues: int, depth: int, n_devices: int = 1,
                 stripe_blocks: int = 1, n_tenants: int = 1,
-                device="cpu") -> QueueState:
+                failed_devices=(), device="cpu") -> QueueState:
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     if stripe_blocks < 1:
@@ -67,6 +72,9 @@ def make_queues(num_queues: int, depth: int, n_devices: int = 1,
         raise ValueError(
             f"num_queues ({num_queues}) must be a multiple of n_devices "
             f"({n_devices})")
+    if failed_devices:
+        _alive_devices(n_devices, failed_devices)   # range / all-dead check
+    failed_devices = tuple(sorted({int(d) for d in failed_devices}))
 
     def ring(fill, dt=torch.int32):
         return torch.full((num_queues, depth), fill, dtype=dt, device=device)
@@ -77,7 +85,8 @@ def make_queues(num_queues: int, depth: int, n_devices: int = 1,
     return QueueState(
         num_queues=num_queues, depth=depth, n_devices=n_devices,
         stripe_blocks=stripe_blocks, n_tenants=n_tenants,
-        sq_key=ring(-1), sq_dst=ring(-1), sq_is_write=ring(False, torch.bool),
+        failed_devices=failed_devices, sq_key=ring(-1), sq_dst=ring(-1),
+        sq_is_write=ring(False, torch.bool),
         sq_prio=ring(0), sq_tenant=ring(0), sq_ticket=ring(-1),
         sq_tail=zi(num_queues), sq_head=zi(num_queues), rr_ptr=zi(n_devices),
         ticket_total=zi(), doorbells=zi(), completions=zi(), dropped=zi(),
@@ -135,7 +144,8 @@ def enqueue_segments(qs: QueueState, segments, tenant: int = 0):
         torch.cat(keys_l), torch.cat(dst_l), torch.cat(w_l),
         torch.cat(prio_l), torch.cat(valid_l),
         seg_bounds=tuple(bounds), n_devices=qs.n_devices,
-        stripe_blocks=qs.stripe_blocks, tenant=tenant)
+        stripe_blocks=qs.stripe_blocks, tenant=tenant,
+        failed_devices=qs.failed_devices)
 
     receipts = []
     for i, (s, e) in enumerate(bounds):
@@ -172,22 +182,34 @@ def enqueue(qs: QueueState, keys: torch.Tensor, dst=None, is_write=None,
 
 @dataclasses.dataclass
 class DrainReceipt:
-    """Order-free accounting of one full ring drain."""
+    """Order-free accounting of one full ring drain; the fault fields are
+    None when the drain ran without a fault model."""
 
     count: torch.Tensor         # () int32
     count_dev: torch.Tensor     # (n_devices,) int32
     count_tenant: torch.Tensor  # (n_tenants,) int32
     reads_dev: torch.Tensor     # (n_devices,) int32
     writes_dev: torch.Tensor    # (n_devices,) int32
+    # fault fields, (n_devices,) int32 unless said otherwise
+    errors_dev: torch.Tensor | None = None      # errored commands
+    errors_tenant: torch.Tensor | None = None   # (n_tenants,)
+    err_reads_dev: torch.Tensor | None = None   # errored reads
+    err_writes_dev: torch.Tensor | None = None  # errored writes
+    retry_reads_dev: torch.Tensor | None = None   # read re-issues
+    retry_writes_dev: torch.Tensor | None = None  # write re-issues
+    transient_errors: torch.Tensor | None = None  # () attempt failures
 
 
-def drain_accounting(qs: QueueState):
+def drain_accounting(qs: QueueState, fault=None):
     """Drain every pending SQ entry, in place, returning accounting only:
     rings cleared, heads advanced to tails, one CQ doorbell, completion
-    counters bumped.  Returns ``(qs, DrainReceipt)``."""
-    count, count_dev, count_tenant, reads_dev, writes_dev = _ops.wfq_drain(
-        qs.sq_key, qs.sq_is_write, qs.sq_tenant,
-        n_devices=qs.n_devices, n_tenants=qs.n_tenants)
+    counters bumped.  ``fault`` (a ``FaultModel``) adds the error and
+    retry counts of each pending command from its ``(device, sq_ticket)``
+    stamp.  Returns ``(qs, DrainReceipt)``."""
+    (count, count_dev, count_tenant, reads_dev, writes_dev,
+     fstats) = _ops.wfq_drain(
+        qs.sq_key, qs.sq_is_write, qs.sq_tenant, qs.sq_ticket,
+        n_devices=qs.n_devices, n_tenants=qs.n_tenants, fault=fault)
     qs.sq_key.fill_(-1)
     qs.sq_dst.fill_(-1)
     qs.sq_is_write.fill_(False)
@@ -201,7 +223,7 @@ def drain_accounting(qs: QueueState):
     qs.tenant_completed += count_tenant
     return qs, DrainReceipt(count=count, count_dev=count_dev,
                             count_tenant=count_tenant, reads_dev=reads_dev,
-                            writes_dev=writes_dev)
+                            writes_dev=writes_dev, **fstats)
 
 
 def in_flight(qs: QueueState) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Storage-device models and the Little's-law throughput math.
 
 Port of ``repro.core.ssd``: the ``SSDSpec`` table (paper Table III), block
-striping over an array of devices, the host-side Little's-law service time
-(``ArrayOfSSDs.service_time``, which the paged-KV manager charges) and the
-per-device service-time model.
-``FaultModel`` is carried as configuration only: its enabled path (command
-status by counter hash) waits for a later slice, and ``BamArray.build``
-refuses an enabled model.
+striping over an array of devices (remapped around hard-failed ones), the
+host-side Little's-law service time (``ArrayOfSSDs.service_time``, which
+the paged-KV manager charges), the per-device service-time model, and the
+``FaultModel``: a command's retry loop resolved in closed form from a
+counter hash of ``(device, ticket, attempt)``.
+
+The hash is the reference's uint32 arithmetic.  Torch has no uint32
+multiply on CUDA, so values are held in int64 below 2^32 and every product
+is taken modulo 2^32 from 16-bit halves of the constant (:func:`mul_u32`),
+which never leaves int64's range.
 """
 from __future__ import annotations
 
@@ -83,25 +87,52 @@ SSD_PRESETS: dict[str, SSDSpec] = {
 }
 
 
+def _alive_devices(n_devices: int, failed_devices) -> tuple:
+    """Surviving device ids, in order, after masking out hard failures."""
+    failed = frozenset(int(d) for d in failed_devices)
+    bad = [d for d in failed if d < 0 or d >= n_devices]
+    if bad:
+        raise ValueError(f"failed_devices {sorted(bad)} out of range for "
+                         f"n_devices={n_devices}")
+    alive = tuple(d for d in range(n_devices) if d not in failed)
+    if not alive:
+        raise ValueError("all devices marked failed: nothing left to route to")
+    return alive
+
+
 def device_of_block(keys: torch.Tensor, n_devices: int,
-                    stripe_blocks: int = 1) -> torch.Tensor:
+                    stripe_blocks: int = 1,
+                    failed_devices=()) -> torch.Tensor:
     """Stripe block keys across the devices, round-robin by stripe; invalid
-    keys (< 0) map to device 0 so they can be masked downstream.  The same
-    function routes SQ commands and charges per-device service time."""
-    dev = torch.remainder(torch.div(keys, stripe_blocks, rounding_mode="floor"),
-                          n_devices).to(torch.int32)
+    keys (< 0) map to device 0 so they can be masked downstream.  Blocks
+    whose home device is in ``failed_devices`` remap to
+    ``alive[(key // stripe) % n_alive]``.  The same function routes SQ
+    commands and charges per-device service time."""
+    stripe = torch.div(keys, stripe_blocks, rounding_mode="floor")
+    dev = torch.remainder(stripe, n_devices).to(torch.int32)
+    if failed_devices:
+        alive = _alive_devices(n_devices, failed_devices)
+        r = torch.remainder(stripe, len(alive))
+        remap = torch.zeros_like(dev)
+        for i, a in enumerate(alive):       # a handful of devices
+            remap = torch.where(r == i, a, remap)
+        dead = torch.zeros_like(dev, dtype=torch.bool)
+        for d in failed_devices:
+            dead = dead | (dev == int(d))
+        dev = torch.where(dead, remap, dev)
     return torch.where(keys >= 0, dev, 0).to(torch.int32)
 
 
 def device_histogram(keys: torch.Tensor, n_devices: int,
                      mask: torch.Tensor | None = None,
-                     stripe_blocks: int = 1) -> torch.Tensor:
+                     stripe_blocks: int = 1,
+                     failed_devices=()) -> torch.Tensor:
     """Count valid block keys per device: (n_devices,) int32.  A bincount
     in place of the reference's one-hot sum: integer sums are order-free."""
     valid = keys >= 0
     if mask is not None:
         valid = valid & mask
-    dev = device_of_block(keys, n_devices, stripe_blocks)
+    dev = device_of_block(keys, n_devices, stripe_blocks, failed_devices)
     return _bincount_masked(dev, valid, n_devices)
 
 
@@ -123,12 +154,39 @@ def sustained_rate(concurrent: float, latency_s: float,
     return concurrent / (latency_s + concurrent / peak_iops)
 
 
+_FAULT_PROB_BITS = 24   # error rates quantize to multiples of 2^-24 (exact)
+_U32 = 0xFFFFFFFF
+
+
+def mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``(h * c) mod 2^32`` for int64 ``h`` in [0, 2^32) and a constant
+    ``c`` < 2^32: the constant's two 16-bit halves keep every partial
+    product below 2^48, so nothing wraps in int64."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 values in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = mul_u32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultModel:
-    """Deterministic fault injection (configuration only in this slice).
+    """Deterministic fault injection for an :class:`ArrayOfSSDs`.
 
-    The default model is disabled; ``BamArray.build`` raises
-    ``NotImplementedError`` for an enabled one.
+    ``transient_error_rate`` is a command attempt's failure probability,
+    quantized to multiples of 2^-24; ``tail_latency_mult`` the service time
+    charged for each retry; ``failed_devices`` hard-failed device ids (their
+    blocks remap to the survivors, and a command that reaches one errors at
+    once); ``retry_budget`` the re-issues a command gets before it retires
+    with an error; ``seed`` the hash salt.  The default model is disabled
+    and leaves every path as it is without faults.
     """
 
     transient_error_rate: float = 0.0
@@ -155,6 +213,49 @@ class FaultModel:
     @property
     def enabled(self) -> bool:
         return self.threshold > 0 or bool(self.failed_devices)
+
+    def attempt_failed(self, dev: torch.Tensor, ticket: torch.Tensor,
+                       attempt: int) -> torch.Tensor:
+        """Did attempt ``attempt`` of command ``ticket`` on ``dev`` fail?
+        The counters are hashed with the seed as uint32 and the low 24 bits
+        compared with the quantized rate, as in the reference."""
+        d = dev.to(torch.int64) & _U32
+        t = ticket.to(torch.int64) & _U32
+        h = (mul_u32(d, 0x9E3779B1) ^ mul_u32(t, 0x85EBCA77)
+             ^ ((attempt * 0xC2B2AE3D) & _U32)
+             ^ ((self.seed * 0x27D4EB2F) & _U32))
+        h = _fmix32(h)
+        return (h & ((1 << _FAULT_PROB_BITS) - 1)) < self.threshold
+
+    def command_status(self, dev: torch.Tensor, ticket: torch.Tensor):
+        """A command's bounded retry loop in closed form, elementwise over
+        ``dev`` and ``ticket`` (broadcast together): ``(ok, retries,
+        transient)``.  ``ok``: some attempt up to ``retry_budget`` succeeded
+        on a live device; ``retries``: re-issues made (leading failed
+        attempts, capped at the budget); ``transient``: failed attempts.
+        Rows with ``ticket < 0`` carry no command and report ``(True, 0,
+        0)``; a hard-failed device errors at once, with no retries."""
+        d, t = torch.broadcast_tensors(dev, ticket)
+        has_cmd = t >= 0
+        transient = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+        if self.threshold == 0:
+            all_failed = torch.zeros(t.shape, dtype=torch.bool,
+                                     device=t.device)
+        else:
+            prefix = torch.ones(t.shape, dtype=torch.bool, device=t.device)
+            for attempt in range(self.retry_budget + 1):
+                prefix = prefix & self.attempt_failed(d, t, attempt)
+                transient = transient + prefix.to(torch.int32)
+            all_failed = prefix
+        hard = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+        for fd in self.failed_devices:
+            hard = hard | (d == int(fd))
+        live = has_cmd & ~hard
+        ok = ~has_cmd | (live & ~all_failed)
+        retries = torch.where(
+            live, torch.clamp(transient, max=self.retry_budget), 0)
+        transient = torch.where(live, transient, 0)
+        return ok, retries.to(torch.int32), transient.to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -145,13 +145,12 @@ def bfs(g: BamGraph, source: int, max_iters: Optional[int] = None,
     With ``async_tokens=True`` iteration ``t`` submits the read of
     iteration ``t+1``'s frontier edges as soon as it has updated the depth
     array and carries the token into the next iteration, which redeems it.
-    ``prefetch=True`` (frontier hints through the readahead lane) is not
-    ported yet.
+    With ``prefetch=True`` each iteration instead hints the next frontier's
+    edges through :meth:`BamArray.prefetch` (speculative fills in the
+    readahead lane), so the next demand wavefront finds its lines resident.
     """
     if prefetch and async_tokens:
         raise ValueError("pick one of prefetch= (hints) or async_tokens=")
-    if prefetch:
-        raise NotImplementedError("bfs(prefetch=True) is not ported yet")
     max_iters = max_iters or g.n_nodes
     depth = torch.full((g.n_nodes,), INF, dtype=torch.int32, device=g.device)
     depth[source] = 0
@@ -168,7 +167,11 @@ def bfs(g: BamGraph, source: int, max_iters: Optional[int] = None,
         for it in range(max_iters):
             req = _frontier_req(g, depth, it)
             nbrs, st = g.edges.read(st, req.idx, req.valid)
-            if not bool(_visit(g, depth, nbrs, req.valid, it).any()):
+            more = bool(_visit(g, depth, nbrs, req.valid, it).any())
+            if prefetch:                           # frontier-ahead hint
+                nxt = _frontier_req(g, depth, it + 1)
+                st = g.edges.prefetch(st, nxt.idx, nxt.valid)
+            if not more:
                 break
     depth = torch.where(depth >= INF, -1, depth)
     return depth.cpu().numpy(), st
@@ -220,16 +223,17 @@ def cc(g: BamGraph, max_iters: Optional[int] = None,
     round (the paper's bursty CC access pattern): ``(labels, BamState)``.
 
     With ``async_tokens=True`` each round submits the next round's
-    all-edge read before the caller checks convergence.  ``prefetch=True``
-    is not ported yet.
+    all-edge read before the caller checks convergence.  With
+    ``prefetch=True`` the whole edge array is hinted once up front (a
+    warm-up through the readahead lane).
     """
     if prefetch and async_tokens:
         raise ValueError("pick one of prefetch= (hints) or async_tokens=")
-    if prefetch:
-        raise NotImplementedError("cc(prefetch=True) is not ported yet")
     max_iters = max_iters or g.n_nodes
     labels = torch.arange(g.n_nodes, dtype=torch.int32, device=g.device)
     st = g.state.clone()
+    if prefetch:
+        st = g.edges.prefetch(st, g.edge_ids)
 
     if async_tokens:
         st, tok = g.edges.submit(st, IORequest.read(g.edge_ids))

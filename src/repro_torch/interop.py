@@ -28,7 +28,7 @@ from repro_torch.utils import resolve_device
 _STATIC = {
     "cache": ("num_sets", "ways", "line_elems"),
     "queues": ("num_queues", "depth", "n_devices", "stripe_blocks",
-               "n_tenants"),
+               "n_tenants", "failed_devices"),
 }
 
 
@@ -49,12 +49,13 @@ def _to_torch(a, device, widen: bool = False) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1
-                     ) -> BamState:
+def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1,
+                     failed_devices=()) -> BamState:
     """A port ``BamState`` on ``device`` from a dict of numpy arrays.
 
-    Static sizes come from the arrays' shapes.  Float32 metric counters
-    are widened to float64; cache line data keeps its dtype."""
+    Static sizes come from the arrays' shapes; ``stripe_blocks`` and
+    ``failed_devices`` are the SSD array's.  Float32 metric counters are
+    widened to float64; cache line data keeps its dtype."""
     def group(prefix, cls):
         return {f: d[f"{prefix}.{f}"] for f in _tensor_fields(cls, prefix)}
 
@@ -71,6 +72,7 @@ def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1
         n_devices=np.asarray(q["rr_ptr"]).shape[0],
         stripe_blocks=stripe_blocks,
         n_tenants=np.asarray(q["tenant_enqueued"]).shape[0],
+        failed_devices=tuple(sorted({int(x) for x in failed_devices})),
         **{k: _to_torch(v, device) for k, v in q.items()})
     m = group("metrics", IOMetrics)
     metrics = IOMetrics(**{k: _to_torch(v, device, widen=True)
@@ -80,7 +82,9 @@ def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1
 
 def state_to_numpy(st: BamState) -> dict:
     """The inverse of :func:`state_from_numpy` (bf16 data comes back as
-    float32, which holds every bf16 value exactly)."""
+    float32, which holds every bf16 value exactly).  The arrays are copies:
+    the port updates a state in place, so a view of a CPU state would
+    change with it."""
     out = {}
     groups = (("cache", st.cache), ("queues", st.queues),
               ("metrics", st.metrics))
@@ -90,7 +94,7 @@ def state_to_numpy(st: BamState) -> dict:
             t = getattr(obj, f).detach().cpu()
             if t.dtype == torch.bfloat16:
                 t = t.float()
-            out[f"{prefix}.{f}"] = t.numpy()
+            out[f"{prefix}.{f}"] = t.numpy().copy()
     return out
 
 

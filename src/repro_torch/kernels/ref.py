@@ -4,8 +4,8 @@ Ports of ``repro.kernels.ref``: ``cache_probe_ref``, ``probe_allocate_ref``,
 ``gather_blocks_ref``, ``paged_attention_ref`` and ``flash_attention_ref``
 are the plain versions of the five CUDA kernels (the CPU path, and the
 yardstick the kernels are held against on the card);
-``sq_enqueue_ref`` and ``wfq_drain_ref`` were never Pallas kernels and stay
-plain torch on every device.
+``sq_enqueue_ref`` and ``wfq_drain_ref`` (with its fault accounting) were
+never Pallas kernels and stay plain torch on every device.
 """
 from __future__ import annotations
 
@@ -235,8 +235,10 @@ def probe_allocate_ref(tags, owner, refcount, dirty, speculative, clock_hand,
 def sq_enqueue_ref(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant,
                    sq_ticket, sq_tail, sq_head, rr_ptr, dev_enqueued,
                    keys, dst, is_write, prio, valid, *,
-                   seg_bounds, n_devices, stripe_blocks, tenant):
-    """Fused multi-segment SQ enqueue (see ``repro.kernels.ref``).
+                   seg_bounds, n_devices, stripe_blocks, tenant,
+                   failed_devices=()):
+    """Fused multi-segment SQ enqueue (see ``repro.kernels.ref``), routing
+    around ``failed_devices``.
 
     The six ring fields are updated in place (the reference returns new
     rings).  Returns ``(sq_tail, rr_ptr, queue, vslot, accepted, ticket_id,
@@ -255,7 +257,7 @@ def sq_enqueue_ref(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant,
     dev_drop, dev_acc = [], []
     for (s, e) in seg_bounds:
         k_s, v_s = keys[s:e], valid[s:e]
-        dev = device_of_block(k_s, nd, stripe_blocks)
+        dev = device_of_block(k_s, nd, stripe_blocks, failed_devices)
         dev64 = dev.to(torch.int64)
         onehot = ((dev[:, None] == darange[None, :])
                   & v_s[:, None]).to(torch.int32)
@@ -321,23 +323,53 @@ def sq_enqueue_ref(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant,
     return tail, rr, queue, vslot, accepted, ticket_id, per_seg
 
 
-def wfq_drain_ref(sq_key, sq_is_write, sq_tenant, *, n_devices, n_tenants):
+def wfq_drain_ref(sq_key, sq_is_write, sq_tenant, sq_ticket=None, *,
+                  n_devices, n_tenants, fault=None):
     """Closed-form drain accounting: ``(count, count_dev, count_tenant,
-    reads_dev, writes_dev)`` as order-free reductions over the pending SQ
-    entries (the fault path waits for a later slice)."""
+    reads_dev, writes_dev, fstats)`` as order-free reductions over the
+    pending SQ entries.  ``fstats`` holds the fault fields of the
+    ``DrainReceipt``: with an enabled ``fault`` each pending command's
+    retry loop is resolved from its ``(device, sq_ticket)`` stamp, else
+    it is empty (the receipt's fault fields stay None)."""
     nq, depth = sq_key.shape
     gsize = nq // n_devices
+    dev_t = sq_key.device
     pending = sq_key >= 0
     count = pending.sum(dtype=torch.int32)
-    count_dev = pending.reshape(n_devices, gsize * depth).sum(
-        1, dtype=torch.int32)
-    writes_dev = (pending & sq_is_write).reshape(
-        n_devices, gsize * depth).sum(1, dtype=torch.int32)
+
+    def group_sum(x):
+        return x.reshape(n_devices, gsize * depth).sum(1, dtype=torch.int32)
+
+    def per_tenant(mask):
+        flat = mask.reshape(-1)
+        out = torch.zeros((n_tenants,), dtype=torch.int32, device=dev_t)
+        return out.index_add_(
+            0, torch.where(flat, sq_tenant.reshape(-1), 0).to(torch.int64),
+            flat.to(torch.int32))
+
+    count_dev = group_sum(pending)
+    writes_dev = group_sum(pending & sq_is_write)
     reads_dev = count_dev - writes_dev
-    flat_p = pending.reshape(-1)
-    count_tenant = torch.zeros((n_tenants,), dtype=torch.int32,
-                               device=sq_key.device)
-    count_tenant.index_add_(
-        0, torch.where(flat_p, sq_tenant.reshape(-1), 0).to(torch.int64),
-        flat_p.to(torch.int32))
-    return count, count_dev, count_tenant, reads_dev, writes_dev
+    count_tenant = per_tenant(pending)
+    if fault is not None and fault.enabled:
+        dev_of_entry = torch.div(
+            torch.arange(nq, dtype=torch.int32, device=dev_t), gsize,
+            rounding_mode="floor")[:, None]
+        ok_e, retries_e, transient_e = fault.command_status(dev_of_entry,
+                                                            sq_ticket)
+        err = pending & ~ok_e
+        errors_dev = group_sum(err)
+        err_writes_dev = group_sum(err & sq_is_write)
+        fstats = dict(
+            errors_dev=errors_dev, errors_tenant=per_tenant(err),
+            err_reads_dev=errors_dev - err_writes_dev,
+            err_writes_dev=err_writes_dev,
+            retry_reads_dev=group_sum(
+                torch.where(pending & ~sq_is_write, retries_e, 0)),
+            retry_writes_dev=group_sum(
+                torch.where(pending & sq_is_write, retries_e, 0)),
+            transient_errors=torch.where(pending, transient_e, 0).sum(
+                dtype=torch.int32))
+    else:
+        fstats = {}
+    return count, count_dev, count_tenant, reads_dev, writes_dev, fstats

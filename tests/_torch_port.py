@@ -1,5 +1,6 @@
 """Shared helpers for the differential tests of ``repro_torch`` against the
-JAX package: state conversion to numpy and field-by-field comparison."""
+JAX package: state conversion to numpy, field-by-field comparison, and
+:class:`Both`, which drives one op on both packages and compares them."""
 from __future__ import annotations
 
 import dataclasses
@@ -85,14 +86,99 @@ def assert_states_equal(port_st, jax_st, msg=""):
             np.testing.assert_array_equal(a, b, err_msg=f"{msg} {k}")
 
 
+# XLA:CPU options for the reference's jitted ops: the older elemental
+# emitters compile its many small fusions in about half the time of the
+# fusion emitters, on one core.
+REFERENCE_COMPILER_OPTIONS = {"xla_cpu_use_fusion_emitters": False}
+
+
 @pytest.fixture(autouse=True, scope="module")
 def fast_reference_compiles():
     """The reference runs here to be compared, not timed: compile it with
     XLA's optimisation passes mostly off, which about halves its compile
-    time on one core.  Every comparison stays as strict as before."""
+    time on one core, and with ``REFERENCE_COMPILER_OPTIONS`` (every
+    top-level ``jax.jit`` made while a module runs; a nested one refuses
+    compiler options), which halves it again.  Every comparison stays as
+    strict as before."""
+    import functools
+
     import jax
 
     prev = jax.config.read("jax_disable_most_optimizations")
+    jit = jax.jit
     jax.config.update("jax_disable_most_optimizations", True)
+    jax.jit = functools.partial(jit,
+                                compiler_options=REFERENCE_COMPILER_OPTIONS)
     yield
+    jax.jit = jit
     jax.config.update("jax_disable_most_optimizations", prev)
+
+
+class Both:
+    """Drive one op on both packages and compare everything after it: the
+    values, the error and drop masks, and the whole cache, ring and
+    ``IOMetrics`` state.  The reference runs through ``jax.jit`` of its own
+    ``submit`` / ``wait_ex`` / ``flush`` (pinned bit-identical to its eager
+    ops by its own tests), cached in the array's op cache; the port runs
+    eagerly on the CPU.  Indices and payloads are numpy arrays."""
+
+    def __init__(self, ja, js, ta, ts):
+        self.ja, self.js, self.ta, self.ts = ja, js, ta, ts
+        self.jsubmit = ja.submit_jit()
+        self.jwait = ja._jit_op("wait_ex", lambda: ja.wait_ex)
+        self.jflush = ja._jit_op("flush", lambda: ja.flush)
+
+    def check(self, msg):
+        assert_states_equal(self.ts, self.js, msg)
+
+    def submit(self, kind, idx, values=None):
+        import jax.numpy as jnp
+        import torch
+        from repro.core import IORequest as JReq
+        from repro_torch.core.bam_array import IORequest as TReq
+
+        jargs = [jnp.asarray(idx)]
+        targs = [torch.from_numpy(idx)]
+        if kind == "write":
+            jargs.append(jnp.asarray(values))
+            targs.append(torch.from_numpy(values))
+        self.js, jt = self.jsubmit(self.js, getattr(JReq, kind)(*jargs))
+        self.ts, tt = self.ta.submit(self.ts, getattr(TReq, kind)(*targs))
+        self.check(f"submit {kind}")
+        np.testing.assert_array_equal(tt.dropped_mask.numpy(),
+                                      np.asarray(jt.dropped_mask))
+        u = tt.ukeys.shape[0]
+        np.testing.assert_array_equal(tt.ticket.numpy(),
+                                      np.asarray(jt.ticket)[:u])
+        assert (tt.ra_keys is None) == (jt.ra_keys is None)
+        if tt.ra_keys is not None:
+            np.testing.assert_array_equal(tt.ra_keys.numpy(),
+                                          np.asarray(jt.ra_keys))
+            np.testing.assert_array_equal(tt.ra_ticket.numpy(),
+                                          np.asarray(jt.ra_ticket))
+        return tt, jt
+
+    def wait(self, toks):
+        """Redeem a pair of tokens; returns the port's ``(values, err)``
+        as numpy, after checking them against the reference's."""
+        tt, jt = toks
+        self.js, jv, je = self.jwait(self.js, jt)
+        self.ts, tv, te = self.ta.wait_ex(self.ts, tt)
+        self.check(f"wait {tt.kind}")
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+        return tv.numpy(), te.numpy()
+
+    def read(self, idx):
+        return self.wait(self.submit("read", idx))[0]
+
+    def write(self, idx, values):
+        self.wait(self.submit("write", idx, values))
+
+    def flush(self):
+        self.js = self.jflush(self.js)
+        self.ts = self.ta.flush(self.ts)
+        self.check("flush")
+        if self.ja.storage is not None:
+            np.testing.assert_array_equal(self.ta.storage.data.numpy(),
+                                          np.asarray(self.ja.storage.data))

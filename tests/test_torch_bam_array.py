@@ -17,12 +17,12 @@ import torch
 
 from repro.core import BamArray as JArray, IORequest as JReq
 from repro.core.ssd import ArrayOfSSDs as JSSDs, INTEL_OPTANE_P5800X as JP58
-from repro_torch.core.bam_array import BamArray as TArray, IORequest as TReq
+from repro_torch.core.bam_array import BamArray as TArray
 from repro_torch.core.ssd import ArrayOfSSDs as TSSDs, INTEL_OPTANE_P5800X
 from repro_torch.interop import state_from_numpy, state_to_numpy
 
 from _torch_port import (  # noqa: F401
-    assert_states_equal, fast_reference_compiles, jax_state_to_numpy)
+    Both, assert_states_equal, fast_reference_compiles, jax_state_to_numpy)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -53,59 +53,6 @@ def _port_like(ja):
     return ta, ts, host
 
 
-class Both:
-    """Drive one op on both packages and compare everything after it.  The
-    reference runs through its own jit-cached ``submit_jit``/``wait_jit``
-    (pinned bit-identical to its eager ops by its own tests); ``read`` and
-    ``write`` are submit + wait on both sides, as the shims are."""
-
-    def __init__(self, ja, js, ta, ts):
-        self.ja, self.js, self.ta, self.ts = ja, js, ta, ts
-        self.jsubmit, self.jwait = ja.submit_jit(), ja.wait_jit()
-
-    def check(self, msg, tv=None, jv=None):
-        assert_states_equal(self.ts, self.js, msg)
-        if tv is not None:
-            np.testing.assert_array_equal(tv.numpy(), np.asarray(jv),
-                                          err_msg=f"{msg} values")
-
-    def submit(self, kind, idx, values=None, valid=None):
-        if kind == "read":
-            jr = JReq.read(jnp.asarray(idx), None if valid is None
-                           else jnp.asarray(valid))
-            tr = TReq.read(torch.from_numpy(idx), None if valid is None
-                           else torch.from_numpy(valid))
-        else:
-            jr = JReq.write(jnp.asarray(idx), jnp.asarray(values))
-            tr = TReq.write(torch.from_numpy(idx), torch.from_numpy(values))
-        self.js, jt = self.jsubmit(self.js, jr)
-        self.ts, tt = self.ta.submit(self.ts, tr)
-        self.check(f"submit {kind}")
-        np.testing.assert_array_equal(tt.dropped_mask.numpy(),
-                                      np.asarray(jt.dropped_mask))
-        return tt, jt
-
-    def wait(self, toks):
-        tt, jt = toks
-        self.js, jv = self.jwait(self.js, jt)
-        self.ts, tv = self.ta.wait(self.ts, tt)
-        self.check("wait", tv, jv)
-        return tv
-
-    def read(self, idx):
-        return self.wait(self.submit("read", idx))
-
-    def write(self, idx, values):
-        self.wait(self.submit("write", idx, values))
-
-    def flush(self):
-        self.js = self.ja.flush(self.js)
-        self.ts = self.ta.flush(self.ts)
-        self.check("flush")
-        np.testing.assert_array_equal(self.ta.storage.data.numpy(),
-                                      np.asarray(self.ja.storage.data))
-
-
 def _idx(rng, n, unique=False):
     return rng.choice(SIZE, n, replace=not unique).astype(np.int32)
 
@@ -124,11 +71,11 @@ def test_outstanding_tokens_read_write_flush(ref_array):
     t_c = b.submit("read", r_idx)
     b.wait(t_b)
     b.wait(t_a)
-    vals_c = b.wait(t_c)
-    np.testing.assert_array_equal(vals_c.numpy()[:20], w_val[:20])
+    vals_c, _ = b.wait(t_c)
+    np.testing.assert_array_equal(vals_c[:20], w_val[:20])
     for _ in range(3):
         idx = _idx(rng, N)
-        np.testing.assert_array_equal(b.read(idx).numpy(), shadow[idx])
+        np.testing.assert_array_equal(b.read(idx), shadow[idx])
         w_idx = _idx(rng, N, unique=True)
         w_val = (rng.standard_normal(N) * 5).astype(np.float32)
         b.write(w_idx, w_val)
@@ -186,14 +133,13 @@ def test_num_unique_slicing_wide_wavefront(ref_array):
     idx[::7] = -1
     tok = b.submit("read", idx)
     assert tok[0].ukeys.shape[0] == 4 and tok[1].ukeys.shape[0] == 4000
-    vals = b.wait(tok)
-    np.testing.assert_array_equal(vals.numpy(),
-                                  np.where(idx >= 0, host[idx], 0))
+    vals, _ = b.wait(tok)
+    np.testing.assert_array_equal(vals, np.where(idx >= 0, host[idx], 0))
     tok = b.submit("read", np.full(4000, -1, np.int32))
     assert tok[0].ukeys.shape[0] == 1
     b.wait(tok)
     empty = b.submit("read", np.zeros(0, np.int32))
-    assert b.wait(empty).shape == (0,)
+    assert b.wait(empty)[0].shape == (0,)
 
 
 def test_storage_backends_match_reference():
@@ -254,21 +200,21 @@ def test_hbm_backend_matches_sim_backend():
 
 
 def test_unported_options_raise():
+    """Only the legacy step-by-step path is still unported; readahead, the
+    prefetch request kind and an enabled fault model build and run (their
+    differential tests are ``test_torch_prefetch.py`` and
+    ``test_torch_faults.py``)."""
     from repro_torch.core.prefetch import PrefetchConfig
     from repro_torch.core.ssd import FaultModel
 
     data = np.zeros(64, np.float32)
     with pytest.raises(NotImplementedError):
-        TArray.build(data, device="cpu", prefetch=PrefetchConfig(True), **CFG)
-    with pytest.raises(NotImplementedError):
         TArray.build(data, device="cpu", fused_rounds=False, **CFG)
-    with pytest.raises(NotImplementedError):
-        TArray.build(data, device="cpu", ssd=TSSDs(
-            INTEL_OPTANE_P5800X, 2, fault=FaultModel(failed_devices=(1,))),
-            **CFG)
-    ta, ts = TArray.build(data, device="cpu", **CFG)
-    with pytest.raises(NotImplementedError):
-        ta.submit(ts, TReq.prefetch(torch.arange(4)))
+    ta, ts = TArray.build(data, device="cpu", prefetch=PrefetchConfig(True),
+                          ssd=TSSDs(INTEL_OPTANE_P5800X, 2, fault=FaultModel(
+                              failed_devices=(1,))), **CFG)
+    ts = ta.prefetch(ts, torch.arange(4))
+    assert float(ts.metrics.prefetch_issued) == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TArray.build(data, **CFG)

@@ -20,7 +20,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
     for m in ("repro_torch.core.bam_array", "repro_torch.serving.engine",
-              "repro_torch.models.transformer"):
+              "repro_torch.models.transformer", "repro_torch.analytics",
+              "repro_torch.analytics.taxi"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
