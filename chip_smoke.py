@@ -62,32 +62,53 @@ Phases, each of which must pass or the script exits non-zero:
    (the plain versions): values, error and drop masks, cache, rings and
    metrics bit-identical, a numpy oracle of the surviving lanes exact,
    errored read lanes 0, no pin or in-flight bit left, fault counters
-   non-zero; then 18 ops with readahead of 512 lines on, sequential reads
-   and prefetch hints among them, held the same way (prefetches issued and
-   hit);
-8. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
+   non-zero; the same 16 ops once more with ``fused_rounds=False`` (the
+   legacy step-by-step path) on the card, bit-identical to the fused run
+   after every op; then 18 ops with readahead of 512 lines on, sequential
+   reads and prefetch hints among them, held the same way (prefetches
+   issued and hit);
+8. the multi-tenant runtime at a deployment's size: ``BamRuntime`` over 4
+   simulated Optane P5800X, 16 SQs x 1024, ``drain="deferred"``, 512-byte
+   lines, a float32 cache of 65,536 sets x 8 ways (256 MiB), way quotas
+   kv 4 / bfs 2 / scan 2 and the scan weighted 0.5; tenants (256 MiB of
+   pinned host data each) a ``BamKVStore`` of 2^20 keys x 32 floats at
+   capacity 2^21 looked up 16,384 keys a round (90 % from the first 2^17),
+   a BFS over ``random_graph(2^22, 16)`` one frontier step a round, and a
+   2^26-row column scanned 65,536 rows a round; 48 rounds (8 warm-up), one
+   drain a round, under KV solo, partitioned and shared: every KV value
+   equal to its host row, every finished BFS equal to scipy's, scan sums
+   within 1e-5 of numpy, the metric invariant after every round, rings
+   drained after every drain, partitioned KV hit rate at least 0.8 of
+   solo; one captured ``probe_allocate`` launch of the BFS tenant (tenant
+   1, ways [4, 6)) and one owner-matched ``cache_probe`` each bit-identical
+   to its plain version; then the benchmark's own sizes for 16 rounds
+   under a fault model, partitioned and shared, on the card and on the
+   CPU: every op's outputs and ``RuntimeState`` and every drain's
+   ``Completions`` (the weighted-fair stream) bit-identical;
+9. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
    ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
    512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
    32 new tokens each; every request done, pages spilled and fetched, and
    ``paged_attention`` launched 48 times per engine step;
-9. the spill/fetch round trip at full size: B 2 after 600 decode steps,
+10. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
-10. decode against forward: full width, depth cut to 4 layers, B 2, S 256:
+11. decode against forward: full width, depth cut to 4 layers, B 2, S 256:
    the last-token logits of 256 ``decode_step``s (paged kernel) and of
    ``forward`` (flash kernel), in float32 (TF32 off for matmuls and cuDNN;
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
    flash, which must have run) within atol 0.15 (``DVF_LIMITS``).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
-wavefronts of the demand and readahead scans, and a window of engine
-steps in phase 8, run under torch.profiler (tables in
-``chiprun_out/profile_*.txt``), and phase 8 also reports the host seconds
+wavefronts of the demand and readahead scans, 8 rounds of the partitioned
+runtime (its checks included), and a window of engine steps in phase 9,
+run under torch.profiler (tables in
+``chiprun_out/profile_*.txt``), and phase 9 also reports the host seconds
 spent in each KV-manager call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
-also with their launches in each phase of 5-7; every phase sets the counts
+also with their launches in each phase of 5-8; every phase sets the counts
 to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1344,8 +1365,9 @@ def fault_phase(dev, seed, counters, size=1 << 24, lanes=65536,
         else:
             ops.append((kind, None, None))
 
-    def run(device):
-        arr, st = BamArray.build(data, device=device, **cfg)
+    def run(device, fused_rounds=True):
+        arr, st = BamArray.build(data, device=device,
+                                 fused_rounds=fused_rounds, **cfg)
         outs = []
         for kind, idx, vals in ops:
             if kind == "flush":
@@ -1411,6 +1433,28 @@ def fault_phase(dev, seed, counters, size=1 << 24, lanes=65536,
                              "from the numpy oracle or the CPU run")
     if bool(gst.cache.refcount.any()) or bool(gst.cache.inflight.any()):
         raise AssertionError(f"{name}: a pin or in-flight bit was left")
+    legacy = None
+    if not readahead:
+        # the legacy step-by-step path on the card, op for op against the
+        # fused run
+        (la, lst, louts), legacy, t_legacy = counted_run(
+            counters, lambda: run(dev, fused_rounds=False))
+        require_launched(f"{name}_legacy", legacy)
+        louts.append((None, state_to_numpy(lst)))
+        for i, ((gv, gs), (lv, ls)) in enumerate(zip(gouts, louts)):
+            for j, (a, b) in enumerate(zip(gv or (), lv or ())):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name} legacy op {i}: output {j} "
+                                         "differs from the fused run")
+            for k in gs:
+                if not np.array_equal(gs[k], ls[k]):
+                    raise AssertionError(f"{name} legacy op {i}: {k} differs "
+                                         "from the fused run")
+        if not torch.equal(la.storage.data, ga.storage.data):
+            raise AssertionError(f"{name} legacy: storage differs")
+        log(f"{name}: the same ops with fused_rounds=False on the card in "
+            f"{t_legacy:.6f} s: values, masks and state bit-identical to the "
+            f"fused run after every op; launches {legacy}")
     m = gst.metrics.summary()
     if not (m["transient_errors"] > 0 and m["retries"] > 0
             and m["failed_commands"] > 0 and m["degraded_reads"] == n_err
@@ -1434,10 +1478,499 @@ def fault_phase(dev, seed, counters, size=1 << 24, lanes=65536,
                 failed_commands=m["failed_commands"], dropped=m["dropped"],
                 prefetch_issued=m["prefetch_issued"],
                 prefetch_hits=m["prefetch_hits"],
-                sim_time_s=m["sim_time_s"], launches=launches)
+                sim_time_s=m["sim_time_s"], launches=launches,
+                legacy_launches=legacy)
 
 
 # --------------------------------------------------------------- phase 8 --
+# The shared multi-tenant runtime at a deployment's size: the scenario of
+# benchmarks/mixed_tenants.py (a KV store with a hot set, a BFS, a column
+# scan, all against one cache and one ring pool, drained once a round) with
+# 512-byte lines, a 256 MiB cache of 65,536 sets x 8 ways, and each tenant's
+# data 256 MiB in pinned host storage.
+RT_DEPLOY = dict(
+    line=128, sets=65536, quotas=(4, 2, 2), scan_weight=0.5,
+    n_keys=1 << 20, value=32, capacity=1 << 21, hot=1 << 17, hot_frac=0.9,
+    batch=16384, nodes=1 << 22, deg=16, scan_rows=1 << 26, scan_wave=65536,
+    rounds=48, warm=8, queues=16, depth=1024)
+# benchmarks/mixed_tenants.py's own (non-smoke) sizes, held card against CPU
+RT_SMALL = dict(
+    line=32, sets=64, quotas=(4, 2, 2), scan_weight=0.5,
+    n_keys=2048, value=8, capacity=4096, hot=128, hot_frac=0.9, batch=256,
+    nodes=2048, deg=8, scan_rows=1 << 15, scan_wave=4096, rounds=16,
+    warm=0, queues=8, depth=1024)
+INF_DEPTH = 2 ** 30
+
+
+def runtime_data(cfg, seed):
+    """The three tenants' host data, from ``seed``: the KV table (keys
+    0..n_keys-1, ``value`` floats each, placed at ``capacity``), the CSR
+    graph and a positive float32 column (trip distances)."""
+    import numpy as np
+    from repro_torch.core.bam_array import BamKVStore
+    from repro_torch.graph.analytics import random_graph
+
+    rng = np.random.default_rng(seed + 7)
+    t0 = time.perf_counter()
+    values = rng.standard_normal((cfg["n_keys"], cfg["value"])).astype(
+        np.float32)
+    table, store_vals, cap = BamKVStore.build_table(
+        np.arange(cfg["n_keys"], dtype=np.int32), values,
+        capacity=cfg["capacity"], probes=8)
+    t_kv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indptr, dst = random_graph(cfg["nodes"], cfg["deg"], seed=seed + 1)
+    t_graph = time.perf_counter() - t0
+    col = rng.random(cfg["scan_rows"], dtype=np.float32)
+    brng = np.random.default_rng(seed + 1000)
+    batches = []
+    for _ in range(cfg["rounds"]):
+        hot = brng.integers(0, cfg["hot"], cfg["batch"])
+        cold = brng.integers(0, cfg["n_keys"], cfg["batch"])
+        pick = brng.random(cfg["batch"]) < cfg["hot_frac"]
+        batches.append(np.where(pick, hot, cold).astype(np.int32))
+    return dict(values=values, table=table, store_vals=store_vals,
+                capacity=cap, indptr=indptr, dst=dst.astype(np.int32),
+                col=col, batches=batches, build_table_s=t_kv,
+                graph_s=t_graph)
+
+
+class RuntimeBfs:
+    """One BFS frontier step a round over the runtime tenant "bfs",
+    restarting from the next source (+17) when a traversal ends, as the
+    reference benchmark's ``_BfsDriver`` does; finished traversals are
+    kept as ``(source, depth)``, -1 unreached."""
+
+    def __init__(self, rt, rst, indptr):
+        import torch
+        from repro_torch.graph.analytics import BamGraph
+
+        self.rt = rt
+        self.g = BamGraph.from_runtime(rt, rst, "bfs", indptr)
+        self.finished = []
+        self.depth = torch.empty((self.g.n_nodes,), dtype=torch.int32,
+                                 device=self.g.device)
+        self._start(0)
+
+    def _start(self, source):
+        self.source, self.it = source, 0
+        self.depth.fill_(INF_DEPTH)
+        self.depth[source] = 0
+
+    def round(self, rst):
+        import torch
+
+        g = self.g
+        active = (self.depth == self.it)[g.edge_src]
+        nbrs, rst = self.rt.read(rst, "bfs", torch.where(active, g.edge_ids,
+                                                         -1), active)
+        nbrs = nbrs[active].to(torch.int64)
+        first = nbrs[self.depth[nbrs] >= INF_DEPTH]
+        self.depth[first] = self.it + 1
+        self.it += 1
+        if first.numel() == 0:
+            self.finished.append((self.source, torch.where(
+                self.depth >= INF_DEPTH, -1, self.depth).cpu().numpy()))
+            self._start((self.source + 17) % g.n_nodes)
+        return rst
+
+
+def mixed_tenants(cfg, data, dev, isolation, *, neighbours=True, fault=None,
+                  on_op=None, capture=None):
+    """One interleaved run: each round one scan wavefront, one KV batch
+    and one BFS step, then one drain of the shared rings.  ``on_op(label,
+    rst, outputs)`` sees the state after every op and ``on_op("drain",
+    rst, comps)`` after every drain.  Checks every KV value against its
+    host row, every scan wave's sum against numpy (1e-5), the metric
+    invariant after every round and ring conservation after every drain
+    (without a fault model: ``fault`` withholds errored lanes' values).
+    Returns per-tenant window summaries, the wall of the rounds and the
+    finished BFS traversals."""
+    import numpy as np
+    import torch
+    from repro_torch.analytics.taxi import scan_column_runtime
+    from repro_torch.core.bam_array import BamKVStore, BamRuntime, TenantSpec
+    from repro_torch.core.ssd import (ArrayOfSSDs, FaultModel,
+                                      INTEL_OPTANE_P5800X)
+
+    kq, bq, sq = cfg["quotas"]
+    line = cfg["line"]
+    specs = [TenantSpec("kv", data["store_vals"], line, ways=kq)]
+    if neighbours:
+        specs += [TenantSpec("bfs", data["dst"], line, ways=bq),
+                  TenantSpec("scan", data["col"], line, ways=sq,
+                             weight=cfg["scan_weight"])]
+    ssd = ArrayOfSSDs(INTEL_OPTANE_P5800X, 4, fault=fault or FaultModel())
+    rt, rst = BamRuntime.build(
+        specs, num_sets=cfg["sets"], ways=kq + (bq + sq if neighbours else 0),
+        num_queues=cfg["queues"], queue_depth=cfg["depth"], ssd=ssd,
+        isolation=isolation, drain="deferred", device=dev)
+    kv = BamKVStore(array=rt.array("kv"), capacity=data["capacity"],
+                    value_elems=cfg["value"], probes=8)
+    table = torch.from_numpy(data["table"]).to(dev)
+    check_vals = fault is None or not fault.enabled
+    values = torch.from_numpy(data["values"]).to(dev) if check_vals else None
+    bfs = RuntimeBfs(rt, rst, data["indptr"]) if neighbours else None
+    col, wave, rows = data["col"], cfg["scan_wave"], cfg["scan_rows"]
+    on_card = torch.device(dev).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    pos, start_summ, wall, n_waves = 0, None, 0.0, 0
+    for r in range(cfg["rounds"]):
+        if r == cfg["warm"]:
+            start_summ = {n: rt.tenant_summary(rst, n) for n in rt.tenants}
+            wall = 0.0
+        keys = torch.from_numpy(data["batches"][r]).to(dev)
+        sync()
+        t0 = time.perf_counter()
+        if neighbours:
+            part, rst, nxt = scan_column_runtime(
+                rt, rst, "scan", n_rows=rows, wavefront=wave, start=pos,
+                waves=1)
+            if on_op:
+                on_op("scan", rst, [torch.tensor(part)])
+        st = rt.tenant_view(rst, "kv")
+        vals, found, st = kv.lookup(st, table, keys)
+        rst = rt.absorb(rst, "kv", st)
+        if on_op:
+            on_op("kv", rst, [vals, found])
+        if neighbours:
+            rst = bfs.round(rst)
+            if on_op:
+                on_op("bfs", rst, [bfs.depth])
+        rst, comps = rt.drain(rst)
+        sync()
+        wall += time.perf_counter() - t0
+        if on_op:
+            on_op("drain", rst, comps)
+        # the round's checks, outside the timed section
+        if not bool(found.all()):
+            raise AssertionError("kv lookup lost keys under sharing")
+        if check_vals and not torch.equal(vals, values[keys.long()]):
+            raise AssertionError(f"round {r}: a KV value differs from its "
+                                 "host row")
+        if neighbours:
+            want = float(col[pos:pos + wave].astype(np.float64).sum())
+            if check_vals and not np.isclose(part, want, rtol=1e-5, atol=0):
+                raise AssertionError(f"round {r}: scan sum {part} against "
+                                     f"numpy's {want}")
+            pos, n_waves = nxt, n_waves + 1
+        rt.assert_metrics_consistent(rst)
+        qs = rst.queues
+        if not torch.equal(qs.tenant_enqueued, qs.tenant_completed):
+            raise AssertionError(f"round {r}: rings not drained: "
+                                 f"{qs.tenant_enqueued.tolist()} enqueued, "
+                                 f"{qs.tenant_completed.tolist()} completed")
+    out = {}
+    for n in rt.tenants:
+        end = rt.tenant_summary(rst, n)
+        s0 = start_summ[n] if start_summ else {k: 0.0 for k in end}
+        d = {k: end[k] - s0[k] for k in ("hits", "misses", "requests",
+                                         "bytes_requested",
+                                         "bytes_from_storage", "dropped")}
+        d["hit_rate"] = d["hits"] / max(d["hits"] + d["misses"], 1.0)
+        d["amplification"] = d["bytes_from_storage"] / max(
+            d["bytes_requested"], 1.0)
+        out[n] = d
+    return dict(tenants=out, wall_s=wall,
+                rounds_timed=cfg["rounds"] - cfg["warm"],
+                finished=bfs.finished if bfs else [],
+                summary=rst.metrics.summary())
+
+
+def bfs_depths_scipy(a, source):
+    """BFS depths from ``source`` over the CSR matrix ``a`` by scipy's
+    breadth-first order (its predecessors, followed level by level), -1
+    unreached."""
+    import numpy as np
+    from scipy.sparse import csgraph
+
+    n = a.shape[0]
+    order, pred = csgraph.breadth_first_order(a, source, directed=True,
+                                              return_predecessors=True)
+    depth = np.full(n, -1, np.int64)
+    depth[order] = 0
+    has = pred >= 0
+    while True:
+        nxt = np.where(has, depth[np.where(has, pred, 0)] + 1, depth)
+        if np.array_equal(nxt, depth):
+            return depth.astype(np.int32)
+        depth = nxt
+
+
+def _scipy_depths_of(shared, source):
+    """One worker's :func:`bfs_depths_scipy`, over the CSR arrays in the
+    shared-memory blocks ``shared`` ((name, shape, dtype) of indptr and
+    indices)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from multiprocessing import shared_memory
+
+    blocks = [shared_memory.SharedMemory(name=name) for name, _, _ in shared]
+    indptr, dst = (np.ndarray(shape, dtype, buffer=b.buf)
+                   for b, (_, shape, dtype) in zip(blocks, shared))
+    n = indptr.shape[0] - 1
+    a = sp.csr_matrix((np.ones(dst.shape[0], np.float64), dst.copy(),
+                       indptr.copy()), shape=(n, n))
+    del indptr, dst
+    for b in blocks:
+        b.close()
+    return source, bfs_depths_scipy(a, source)
+
+
+def scipy_depths(indptr, dst, sources) -> dict:
+    """:func:`bfs_depths_scipy` from each source, in spawned worker
+    processes (one a source, at most the host's cores) that read the graph
+    from shared memory; the workers end with the pool and the blocks are
+    unlinked."""
+    import multiprocessing
+    import os
+
+    import numpy as np
+    from multiprocessing import shared_memory
+
+    blocks, shared = [], []
+    for arr in (np.asarray(indptr, np.int32), np.asarray(dst, np.int32)):
+        b = shared_memory.SharedMemory(create=True, size=arr.nbytes)
+        np.ndarray(arr.shape, arr.dtype, buffer=b.buf)[:] = arr
+        blocks.append(b)
+        shared.append((b.name, arr.shape, arr.dtype.str))
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(max(1, min(len(sources), os.cpu_count() or 1))) as pool:
+            return dict(pool.starmap(_scipy_depths_of,
+                                     [(shared, s) for s in sources]))
+    finally:
+        for b in blocks:
+            b.close()
+            b.unlink()
+
+
+def capture_probes(tenant, way_lo):
+    """Wrap the probe dispatchers so that the widest ``probe_allocate``
+    launch of ``tenant`` with way window from ``way_lo`` and the widest
+    owner-matched ``cache_probe`` of ``tenant`` keep copies of their
+    inputs; returns ``(captured, restore)``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    captured, orig = {}, (ops.probe_allocate, ops.cache_probe)
+
+    def keep(args, kw):
+        copy = (lambda x: x.clone() if isinstance(x, torch.Tensor) else x)
+        return [copy(a) for a in args], {k: copy(v) for k, v in kw.items()}
+
+    def wider(name, keys):
+        return name not in captured \
+            or keys.shape[0] > captured[name][0][-1].shape[0]
+
+    def pa(*args, **kw):
+        if kw.get("tenant") == tenant and kw.get("way_lo") == way_lo \
+                and wider("probe_allocate", args[6]):
+            captured["probe_allocate"] = keep(args, kw)
+        return orig[0](*args, **kw)
+
+    def cp(*args, **kw):
+        if kw.get("tenant") == tenant and kw.get("owner") is not None \
+                and wider("cache_probe", args[1]):
+            captured["cache_probe"] = keep(args[:2], kw)
+        return orig[1](*args, **kw)
+
+    ops.probe_allocate, ops.cache_probe = pa, cp
+
+    def restore():
+        ops.probe_allocate, ops.cache_probe = orig
+
+    return captured, restore
+
+
+def captured_probe_checks(captured) -> dict:
+    """Each captured launch again, kernel against plain version, bit for
+    bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cache_probe import cache_probe_cuda
+    from repro_torch.kernels.probe_allocate import probe_allocate_cuda
+
+    args, kw = captured["probe_allocate"]
+    kw = dict(kw)
+    extra = [kw.pop("valid"), kw.pop("alloc_mask"), kw.pop("protect_slots")]
+    got = probe_allocate_cuda(*args, *extra, **kw)
+    want = ref.probe_allocate_ref(*args, *extra, **kw)
+    require_equal("probe_allocate (runtime capture)", got, want)
+    pa = dict(m=int(args[6].shape[0]), tenant=kw["tenant"],
+              way_window=[kw["way_lo"], kw["way_hi"]],
+              spec_insert=kw["spec_insert"], hits=int(want[0].sum()),
+              granted=int(want[3].sum()))
+    args, kw = captured["cache_probe"]
+    got = cache_probe_cuda(*args, **kw)
+    want = ref.cache_probe_ref(*args, **kw)
+    require_equal("cache_probe (runtime capture)", got, want)
+    cp = dict(m=int(args[1].shape[0]), tenant=kw["tenant"],
+              hits=int(want[0].sum()))
+    return dict(probe_allocate=pa, cache_probe=cp)
+
+
+def runtime_phase(dev, seed, counters, profile=False):
+    """The deployment under KV solo, partitioned and shared; a captured
+    probe_allocate launch of the partitioned BFS tenant (tenant 1, ways
+    [4, 6)) and an owner-matched cache_probe, each against its plain
+    version; then the benchmark's own sizes under a fault model on the
+    card and on the CPU, bit-identical after every op and drain."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.ssd import FaultModel
+    from repro_torch.interop import runtime_state_to_numpy
+
+    t_phase = time.perf_counter()
+    cfg = RT_DEPLOY
+    data = runtime_data(cfg, seed)
+    log(f"runtime: KV table of {cfg['n_keys']} keys x {cfg['value']} floats "
+        f"placed at capacity {data['capacity']} in "
+        f"{data['build_table_s']:.3f} s (host loop); graph of {cfg['nodes']} "
+        f"vertices, {len(data['dst'])} edges in {data['graph_s']:.3f} s; "
+        f"scan column {cfg['scan_rows']} rows")
+    runs, phases = {}, {}
+    captured, restore = {}, None
+    for name, iso, nb in (("solo", "partitioned", False),
+                          ("partitioned", "partitioned", True),
+                          ("shared", "shared", True)):
+        if name == "partitioned":
+            captured, restore = capture_probes(1, cfg["quotas"][0])
+        res, phases[f"runtime_{name}"], wall = counted_run(
+            counters, lambda: mixed_tenants(cfg, data, dev, iso,
+                                            neighbours=nb))
+        if restore:
+            restore()
+            restore = None
+        require_launched(f"runtime_{name}", phases[f"runtime_{name}"])
+        runs[name] = res
+        tn = res["tenants"]
+        log(f"runtime {name}: {res['rounds_timed']} timed rounds in "
+            f"{res['wall_s']:.6f} s ({res['wall_s'] / res['rounds_timed']:.6f}"
+            f" s a round; whole run with checks {wall:.6f} s); "
+            + "; ".join(f"{n} hit rate {d['hit_rate']:.6f}, amplification "
+                        f"{d['amplification']:.6f}, dropped {d['dropped']:.0f}"
+                        for n, d in tn.items())
+            + f"; launches {phases[f'runtime_{name}']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    solo = runs["solo"]["tenants"]["kv"]["hit_rate"]
+    part = runs["partitioned"]["tenants"]["kv"]["hit_rate"]
+    shared = runs["shared"]["tenants"]["kv"]["hit_rate"]
+    if part < 0.8 * solo:
+        raise AssertionError(f"partitioned KV hit rate {part} under 0.8 of "
+                             f"solo {solo}")
+    log(f"runtime: KV hit rate solo {solo:.6f}, partitioned {part:.6f} "
+        f"({part / solo:.6f} of solo), shared {shared:.6f} "
+        f"({shared / part if part else 0.0:.6f} of partitioned)")
+    t0 = time.perf_counter()
+    finished = {name: runs[name].pop("finished")
+                for name in ("partitioned", "shared")}
+    traversals = scipy_depths(data["indptr"], data["dst"],
+                              sorted({src for f in finished.values()
+                                      for src, _ in f}))
+    for name, done in finished.items():
+        for source, depth in done:
+            if not np.array_equal(depth, traversals[source]):
+                raise AssertionError(f"runtime {name}: BFS from {source} "
+                                     "differs from scipy")
+            runs[name].setdefault("bfs_sources", []).append(source)
+    if not all(runs[n].get("bfs_sources") for n in ("partitioned",
+                                                    "shared")):
+        raise AssertionError("runtime: no BFS traversal finished")
+    t_scipy = time.perf_counter() - t0
+    log(f"runtime: BFS traversals from sources "
+        f"{ {n: runs[n]['bfs_sources'] for n in ('partitioned', 'shared')} }"
+        f" equal scipy's ({t_scipy:.3f} s)")
+    probes = captured_probe_checks(captured)
+    log(f"runtime: captured launches bit-identical to the plain versions: "
+        f"{probes}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        short = dict(cfg, rounds=8, warm=0)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mixed_tenants(short, data, dev, "partitioned")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_table("runtime_partitioned", prof, wall)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # card against CPU at the benchmark's own sizes, under faults
+    small = runtime_data(RT_SMALL, seed)
+    fault = FaultModel(transient_error_rate=0.05, failed_devices=(1,),
+                       seed=0)
+    cmp = {}
+    for iso in ("partitioned", "shared"):
+        logs = {}
+        for device in (dev, "cpu"):
+            trace = logs[str(device)] = []
+
+            def on_op(label, rst, out, trace=trace):
+                if label == "drain":
+                    out = [getattr(out, f.name)
+                           for f in dataclasses.fields(out)]
+                trace.append((label, [t.cpu().clone() for t in out],
+                              runtime_state_to_numpy(rst)))
+
+            if torch.device(device).type == "cuda":
+                res, phases[f"runtime_vs_cpu_{iso}"], _ = counted_run(
+                    counters, lambda: mixed_tenants(
+                        RT_SMALL, small, device, iso, fault=fault,
+                        on_op=on_op))
+                require_launched(f"runtime_vs_cpu_{iso}",
+                                 phases[f"runtime_vs_cpu_{iso}"])
+            else:
+                res = mixed_tenants(RT_SMALL, small, device, iso,
+                                    fault=fault, on_op=on_op)
+        g, c = logs[str(dev)], logs["cpu"]
+        if len(g) != len(c):
+            raise AssertionError("runtime card/CPU: op counts differ")
+        for i, ((lg, og, sg), (lc, oc, sc)) in enumerate(zip(g, c)):
+            for j, (a, b) in enumerate(zip(og, oc)):
+                if lg == "scan":    # float32 sums in the card's order
+                    same = np.isclose(float(a), float(b), rtol=1e-5, atol=0)
+                else:
+                    same = a.dtype == b.dtype \
+                        and torch.equal(_bits(a), _bits(b))
+                if not same:
+                    raise AssertionError(f"runtime card/CPU {iso}: op {i} "
+                                         f"({lg}) output {j} differs")
+            for k in sc:
+                if not np.array_equal(sg[k], sc[k]):
+                    raise AssertionError(f"runtime card/CPU {iso}: op {i} "
+                                         f"({lg}) {k} differs")
+        m = res["summary"]
+        if not (m["transient_errors"] > 0 and m["dev_reads"][1] == 0):
+            raise AssertionError(f"runtime card/CPU: fault counters {m}")
+        cmp[iso] = dict(ops=len(g), drains=sum(x[0] == "drain" for x in g),
+                        transient_errors=m["transient_errors"],
+                        failed_commands=m["failed_commands"],
+                        degraded_reads=m["degraded_reads"])
+    log(f"runtime card/CPU at the benchmark's sizes under faults: every "
+        f"op's outputs and RuntimeState, and every drain's Completions, "
+        f"bit-identical: {cmp}")
+    total = time.perf_counter() - t_phase
+    log(f"runtime phase: {total:.3f} s")
+    return dict(config=cfg, runs=runs, kv_hit=dict(
+        solo=solo, partitioned=part, shared=shared,
+        retained_partitioned=part / solo if solo else 0.0),
+        scipy_s=t_scipy, captured=probes, card_vs_cpu=cmp,
+        phase_launches=phases, total_s=total)
+
+
+# --------------------------------------------------------------- phase 9 --
 def serving_phase(dev, seed, counters, profile=False):
     """qwen2.5-14b at full width and depth, bf16, through the engine."""
     import numpy as np
@@ -1690,8 +2223,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace one more BFS and two CC rounds, 64 "
-                         "wavefronts of two taxi scans, and a window of "
-                         "serving steps, with torch.profiler")
+                         "wavefronts of two taxi scans, 8 rounds of the "
+                         "partitioned runtime, and a window of serving "
+                         "steps, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -1761,6 +2295,9 @@ def main() -> int:
     faults = fault_phase(dev, args.seed, bam)
     faults_ra = fault_phase(dev, args.seed, bam, readahead=True)
     torch.cuda.empty_cache()
+    runtime = runtime_phase(dev, args.seed, bam, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
     api, model, serve = serving_phase(dev, args.seed, attn,
                                       profile=args.profile)
     rt = roundtrip_phase(api, model, args.seed)
@@ -1779,7 +2316,9 @@ def main() -> int:
                for name in REPLACES]
     phases = dict(sres["phase_launches"], **taxi["phase_launches"],
                   faults=faults["launches"],
-                  faults_readahead=faults_ra["launches"])
+                  faults_legacy=faults["legacy_launches"],
+                  faults_readahead=faults_ra["launches"],
+                  **runtime["phase_launches"])
     for entry in kernels:
         if entry["name"] in bam:
             entry["phase_launches"] = {p: n[entry["name"]]
@@ -1794,7 +2333,7 @@ def main() -> int:
         build_s=t_build, build_log=build.build_log, hgmma=hgmma,
         kernels=kres,
         slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
-        serving=serve, roundtrip=rt,
+        runtime=runtime, serving=serve, roundtrip=rt,
         decode_vs_forward=dvf,
         decode_vs_forward_bf16=dvf_bf16,
         total_s=total_s), indent=1))

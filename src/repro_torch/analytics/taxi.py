@@ -164,10 +164,24 @@ def scan_column(tbl: TaxiTable, name: str, *, wavefront: int = 1024,
 def scan_column_runtime(rt, rst, name: str, *, n_rows: int,
                         wavefront: int = 1024, start: int = 0,
                         waves: Optional[int] = None):
-    """Streaming scan of a column registered as a shared-runtime tenant:
-    it needs ``BamRuntime``, which is not ported yet."""
-    raise NotImplementedError("scan_column_runtime needs BamRuntime, which "
-                              "is not ported yet (ROADMAP.md §1)")
+    """Streaming scan of a column registered as a shared-runtime tenant
+    (``BamRuntime``): ``waves`` wavefronts from row ``start`` (``None``: one
+    full pass), through ``rt.read``.  Past-the-end lanes read 0 within a
+    wave; the stream wraps to row 0 between waves.  Returns
+    ``(partial_sum, rst, next_start)``, so a driver can advance one
+    wavefront a round."""
+    if waves is None:
+        waves = -(-n_rows // wavefront)
+    dev = rt.array(name).device
+    total = 0.0
+    for _ in range(waves):
+        idx = start + torch.arange(wavefront, dtype=torch.int32, device=dev)
+        v, rst = rt.read(rst, name, idx)
+        total += float(v.sum())
+        start = start + wavefront
+        if start >= n_rows:
+            start = 0
+    return total, rst, start
 
 
 def run_query_baseline(tbl: TaxiTable, query: str) -> Tuple[dict, dict]:

@@ -1,7 +1,6 @@
 """BaM software cache (§III-D): set-associative, clock replacement.
 
-Port of ``repro.core.cache``, restricted to what the fused submit/wait path
-calls.  Where the reference rebuilds a ``CacheState`` after every op, the
+Port of ``repro.core.cache``.  Where the reference rebuilds a ``CacheState`` after every op, the
 port updates the state's tensors in place and returns the same object; the
 values are the reference's, bit for bit.
 
@@ -16,13 +15,13 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops as _ops
-from repro_torch.utils import mix_hash
+from repro_torch.utils import mix_hash, segment_rank
 
 __all__ = [
-    "CacheState", "make_cache", "probe", "probe_allocate", "fill",
-    "acquire", "release", "mark_dirty", "promote", "mark_inflight",
-    "clear_inflight", "grant_bookkeeping", "fill_complete",
-    "invalidate_failed",
+    "CacheState", "make_cache", "probe", "allocate", "probe_allocate",
+    "fill", "count_hits", "acquire", "release", "pin_keys", "mark_dirty",
+    "promote", "mark_inflight", "clear_inflight", "write_line",
+    "grant_bookkeeping", "fill_complete", "invalidate_failed",
 ]
 
 
@@ -144,6 +143,73 @@ def _apply_grants(cache: CacheState, keys, sets, way, ok, n_valid,
         cache.bypasses += n_valid - n_ok
 
 
+def _way_window(ways: int, way_lo: int, way_hi: int | None) -> int:
+    way_hi = ways if way_hi is None else way_hi
+    if not (0 <= way_lo < way_hi <= ways):
+        raise ValueError(
+            f"way window [{way_lo}, {way_hi}) invalid for ways={ways}")
+    return way_hi
+
+
+def allocate(cache: CacheState, keys: torch.Tensor, valid: torch.Tensor,
+             protect_slots: torch.Tensor | None = None,
+             speculative: bool = False, tenant: int = 0, way_lo: int = 0,
+             way_hi: int | None = None):
+    """Grant a victim slot per missed key, in place: the two-step path's
+    clock sweep, rank-disambiguated within each set (plain PyTorch, as in
+    the reference).  Eligible ways are unpinned, not another tenant's
+    dirty line, inside ``[way_lo, way_hi)``, not a pending speculative
+    line under ``speculative`` and not in ``protect_slots``; they are
+    swept by class (invalid, speculative, resident) and then clock order
+    from the hand.  Returns ``(cache, AllocResult)``."""
+    m = keys.shape[0]
+    ways = cache.ways
+    way_hi = _way_window(ways, way_lo, way_hi)
+    dev = keys.device
+    sets = _set_of(cache, keys)
+    sets64 = sets.to(torch.int64)
+    elig = (cache.refcount == 0) & ~((cache.owner != tenant)
+                                     & (cache.tags >= 0) & cache.dirty)
+    if way_lo != 0 or way_hi != ways:
+        w = torch.arange(ways, device=dev)
+        elig = elig & ((w >= way_lo) & (w < way_hi))[None, :]
+    if speculative:
+        elig = elig & ~(cache.speculative & (cache.tags >= 0))
+    if protect_slots is not None:
+        overlay = torch.zeros((cache.num_lines,), dtype=torch.bool,
+                              device=dev)
+        _put_(overlay, protect_slots, protect_slots >= 0, True)
+        elig = elig & ~overlay.view(cache.num_sets, ways)
+
+    rank = segment_rank(sets, valid)
+    hand = cache.clock_hand[sets64]
+    way_order = torch.remainder(
+        hand[:, None] + torch.arange(ways, dtype=torch.int32,
+                                     device=dev)[None, :], ways).to(
+        torch.int64)
+    vclass = torch.where(cache.tags < 0, 0,
+                         torch.where(cache.speculative, 1, 2))
+    pref = torch.sort(vclass[sets64[:, None], way_order], dim=1,
+                      stable=True).indices
+    way_order = torch.gather(way_order, 1, pref)
+    elig_rot = elig[sets64[:, None], way_order]
+    csum = torch.cumsum(elig_rot.to(torch.int32), 1, dtype=torch.int32)
+    sel = elig_rot & (csum == (rank + 1)[:, None])
+    ok = valid & (csum[:, -1] >= rank + 1) if m else valid
+    way_pos = torch.argmax(sel.to(torch.int32), dim=1) if m \
+        else torch.zeros((0,), dtype=torch.int64, device=dev)
+    way = torch.gather(way_order, 1, way_pos[:, None])[:, 0].to(torch.int32)
+    slot = (sets * ways + way).to(torch.int32)
+    evicted_key = torch.where(ok, cache.tags[sets64, way.to(torch.int64)],
+                              -1).to(torch.int32)
+    evicted_dirty = ok & cache.dirty[sets64, way.to(torch.int64)]
+    _apply_grants(cache, keys, sets, way, ok, valid.sum(dtype=torch.int32),
+                  speculative, tenant)
+    return cache, AllocResult(slot=torch.where(ok, slot, -1), ok=ok,
+                              evicted_key=evicted_key,
+                              evicted_dirty=evicted_dirty)
+
+
 def probe_allocate(cache: CacheState, keys: torch.Tensor,
                    valid: torch.Tensor | None = None, *,
                    alloc_mask: torch.Tensor | None = None,
@@ -156,10 +222,7 @@ def probe_allocate(cache: CacheState, keys: torch.Tensor,
     Returns ``(cache, ProbeResult, AllocResult)``; ``cache`` is the same
     object, updated in place."""
     ways = cache.ways
-    way_hi = ways if way_hi is None else way_hi
-    if not (0 <= way_lo < way_hi <= ways):
-        raise ValueError(
-            f"way window [{way_lo}, {way_hi}) invalid for ways={ways}")
+    way_hi = _way_window(ways, way_lo, way_hi)
     if valid is None:
         valid = keys >= 0
     sets = _set_of(cache, keys)
@@ -197,6 +260,11 @@ def fill(cache: CacheState, slots: torch.Tensor, ok: torch.Tensor,
     return cache
 
 
+def count_hits(cache: CacheState, n_hits: torch.Tensor) -> CacheState:
+    cache.hits += n_hits
+    return cache
+
+
 def acquire(cache: CacheState, slots: torch.Tensor) -> CacheState:
     """refcount++ on the given flat slots (slot < 0 ignored)."""
     ok = slots >= 0
@@ -211,6 +279,13 @@ def release(cache: CacheState, slots: torch.Tensor) -> CacheState:
         0, torch.where(ok, slots, 0).to(torch.int64), -ok.to(torch.int32))
     cache.refcount.clamp_(min=0)
     return cache
+
+
+def pin_keys(cache: CacheState, keys: torch.Tensor,
+             tenant: int = 0) -> CacheState:
+    """Pin the resident lines of ``keys`` (user-directed residency
+    control), through the ``cache_probe`` kernel on CUDA tensors."""
+    return acquire(cache, probe(cache, keys, tenant=tenant).slot)
 
 
 def _set_flag(flag: torch.Tensor, slots: torch.Tensor, value: bool) -> None:
@@ -236,6 +311,13 @@ def clear_inflight(cache: CacheState, slots: torch.Tensor) -> CacheState:
 def mark_dirty(cache: CacheState, slots: torch.Tensor) -> CacheState:
     _set_flag(cache.dirty, slots, True)
     return cache
+
+
+def write_line(cache: CacheState, slots: torch.Tensor, ok: torch.Tensor,
+               lines: torch.Tensor) -> CacheState:
+    """Overwrite resident lines and mark them dirty (the write-hit path)."""
+    fill(cache, slots, ok, lines)
+    return mark_dirty(cache, torch.where(ok, slots, -1))
 
 
 def grant_bookkeeping(cache: CacheState, n_hits: torch.Tensor,

@@ -75,6 +75,11 @@ class IOMetrics:
                                       device=device),
         )
 
+    def clone(self) -> "IOMetrics":
+        """A copy whose tensors share nothing with this one."""
+        return IOMetrics(**{f.name: getattr(self, f.name).clone()
+                            for f in dataclasses.fields(self)})
+
     @property
     def n_devices(self) -> int:
         return int(self.dev_reads.shape[0])
@@ -163,6 +168,25 @@ def metrics_delta(new: IOMetrics, old: IOMetrics) -> IOMetrics:
     kw = {f: getattr(new, f) - getattr(old, f) for f in ADDITIVE_FIELDS}
     kw.update({f: getattr(new, f) for f in WATERMARK_FIELDS})
     return IOMetrics(**kw)
+
+
+def metrics_accumulate(acc: IOMetrics, delta: IOMetrics) -> IOMetrics:
+    """Fold a :func:`metrics_delta` into an accumulator: additive fields
+    sum, watermarks take the max.  A new object; neither argument
+    changes (the runtime's ``absorb`` folds deltas with it)."""
+    kw = {f: getattr(acc, f) + getattr(delta, f) for f in ADDITIVE_FIELDS}
+    kw.update({f: torch.maximum(getattr(acc, f), getattr(delta, f))
+               for f in WATERMARK_FIELDS})
+    return IOMetrics(**kw)
+
+
+def metrics_sum(parts) -> IOMetrics:
+    """Combine per-tenant metrics into the global view (sum / max)."""
+    parts = list(parts)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = metrics_accumulate(acc, p)
+    return acc
 
 
 def recheck_token_watermark(mt: IOMetrics) -> None:

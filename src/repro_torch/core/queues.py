@@ -1,9 +1,11 @@
 """High-throughput I/O queues: BaM's §III-C I/O stack as a prefix sum.
 
-Port of ``repro.core.queues``, restricted to the fused path: the SQ ring
-pool, the fused multi-segment enqueue (routing around hard-failed devices)
-and the closed-form drain with its fault accounting.  The rings are updated
-in place where the reference rebuilds a ``QueueState``.
+Port of ``repro.core.queues``: the SQ ring pool, the fused multi-segment
+enqueue (routing around hard-failed devices), the closed-form drain with
+its fault accounting, and ``service_all``, the drain that returns the
+completion stream in its arbitration order (priority-major; weighted-fair
+across tenants within a priority class).  The rings are updated in place
+where the reference rebuilds a ``QueueState``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from repro_torch.core.ssd import _alive_devices
 from repro_torch.kernels import ops as _ops
 
 __all__ = ["QueueState", "make_queues", "enqueue", "enqueue_segments",
-           "drain_accounting", "SubmitReceipt", "DrainReceipt",
+           "service_all", "drain_accounting", "Completions",
+           "SubmitReceipt", "DrainReceipt",
            "PRIO_DEMAND", "PRIO_READAHEAD", "in_flight",
            "in_flight_per_device", "in_flight_per_tenant"]
 
@@ -28,13 +31,16 @@ class QueueState:
     """A pool of NVMe submission queues, split into ``n_devices`` equal
     groups: queues ``[d*group, (d+1)*group)`` belong to device ``d``.
     ``failed_devices`` (static, mirroring the SSD array's ``FaultModel``)
-    lists hard-failed channels, whose blocks route to the survivors."""
+    lists hard-failed channels, whose blocks route to the survivors.
+    ``tenant_weights`` are the per-tenant service weights of the
+    weighted-fair drain (:func:`service_all`)."""
 
     num_queues: int
     depth: int
     n_devices: int
     stripe_blocks: int
     n_tenants: int
+    tenant_weights: tuple
     failed_devices: tuple
     sq_key: torch.Tensor       # (num_queues, depth) int32, -1 free
     sq_dst: torch.Tensor       # (num_queues, depth) int32 destination slot
@@ -63,6 +69,7 @@ class QueueState:
 
 def make_queues(num_queues: int, depth: int, n_devices: int = 1,
                 stripe_blocks: int = 1, n_tenants: int = 1,
+                tenant_weights: tuple | None = None,
                 failed_devices=(), device="cpu") -> QueueState:
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
@@ -72,6 +79,17 @@ def make_queues(num_queues: int, depth: int, n_devices: int = 1,
         raise ValueError(
             f"num_queues ({num_queues}) must be a multiple of n_devices "
             f"({n_devices})")
+    if n_tenants < 1:
+        raise ValueError(f"n_tenants must be >= 1, got {n_tenants}")
+    if tenant_weights is None:
+        tenant_weights = (1.0,) * n_tenants
+    tenant_weights = tuple(float(w) for w in tenant_weights)
+    if len(tenant_weights) != n_tenants:
+        raise ValueError(
+            f"tenant_weights has {len(tenant_weights)} entries for "
+            f"n_tenants={n_tenants}")
+    if any(w <= 0 for w in tenant_weights):
+        raise ValueError(f"tenant_weights must be positive: {tenant_weights}")
     if failed_devices:
         _alive_devices(n_devices, failed_devices)   # range / all-dead check
     failed_devices = tuple(sorted({int(d) for d in failed_devices}))
@@ -85,6 +103,7 @@ def make_queues(num_queues: int, depth: int, n_devices: int = 1,
     return QueueState(
         num_queues=num_queues, depth=depth, n_devices=n_devices,
         stripe_blocks=stripe_blocks, n_tenants=n_tenants,
+        tenant_weights=tenant_weights,
         failed_devices=failed_devices, sq_key=ring(-1), sq_dst=ring(-1),
         sq_is_write=ring(False, torch.bool),
         sq_prio=ring(0), sq_tenant=ring(0), sq_ticket=ring(-1),
@@ -200,16 +219,10 @@ class DrainReceipt:
     transient_errors: torch.Tensor | None = None  # () attempt failures
 
 
-def drain_accounting(qs: QueueState, fault=None):
-    """Drain every pending SQ entry, in place, returning accounting only:
-    rings cleared, heads advanced to tails, one CQ doorbell, completion
-    counters bumped.  ``fault`` (a ``FaultModel``) adds the error and
-    retry counts of each pending command from its ``(device, sq_ticket)``
-    stamp.  Returns ``(qs, DrainReceipt)``."""
-    (count, count_dev, count_tenant, reads_dev, writes_dev,
-     fstats) = _ops.wfq_drain(
-        qs.sq_key, qs.sq_is_write, qs.sq_tenant, qs.sq_ticket,
-        n_devices=qs.n_devices, n_tenants=qs.n_tenants, fault=fault)
+def _retire(qs: QueueState, count, count_dev, count_tenant) -> None:
+    """Completion-side ring maintenance of a full drain, in place: rings
+    cleared, heads advanced to tails, one CQ doorbell, completion counters
+    bumped."""
     qs.sq_key.fill_(-1)
     qs.sq_dst.fill_(-1)
     qs.sq_is_write.fill_(False)
@@ -221,9 +234,161 @@ def drain_accounting(qs: QueueState, fault=None):
     qs.completions += count
     qs.dev_completed += count_dev
     qs.tenant_completed += count_tenant
+
+
+def drain_accounting(qs: QueueState, fault=None):
+    """Drain every pending SQ entry, in place, returning accounting only:
+    rings cleared, heads advanced to tails, one CQ doorbell, completion
+    counters bumped.  ``fault`` (a ``FaultModel``) adds the error and
+    retry counts of each pending command from its ``(device, sq_ticket)``
+    stamp.  Returns ``(qs, DrainReceipt)``."""
+    (count, count_dev, count_tenant, reads_dev, writes_dev,
+     fstats) = _ops.wfq_drain(
+        qs.sq_key, qs.sq_is_write, qs.sq_tenant, qs.sq_ticket,
+        n_devices=qs.n_devices, n_tenants=qs.n_tenants, fault=fault)
+    _retire(qs, count, count_dev, count_tenant)
     return qs, DrainReceipt(count=count, count_dev=count_dev,
                             count_tenant=count_tenant, reads_dev=reads_dev,
                             writes_dev=writes_dev, **fstats)
+
+
+@dataclasses.dataclass
+class Completions:
+    """Drained commands in their arbitration order; filter with ``valid``.
+    The per-command fields have ``num_queues * depth`` entries; ``status``
+    is 0 OK, 1 error (all 0 without a fault model).  The counts are
+    (n_devices,) or (n_tenants,) int32; the fault counts are zeros without
+    a fault model."""
+
+    keys: torch.Tensor
+    dst: torch.Tensor
+    is_write: torch.Tensor
+    prio: torch.Tensor
+    tenant: torch.Tensor
+    valid: torch.Tensor
+    status: torch.Tensor
+    count: torch.Tensor          # () int32
+    count_dev: torch.Tensor
+    count_tenant: torch.Tensor
+    error_dev: torch.Tensor
+    error_tenant: torch.Tensor
+    retries_dev: torch.Tensor
+    transient: torch.Tensor      # () int32 attempt failures
+    err_reads_dev: torch.Tensor
+    err_writes_dev: torch.Tensor
+    retry_reads_dev: torch.Tensor
+    retry_writes_dev: torch.Tensor
+
+
+def _stable_order(key: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Refine ``order`` by a stable sort on ``key[order]``."""
+    return order[torch.sort(key[order], stable=True).indices]
+
+
+def service_all(qs: QueueState, fault=None):
+    """The simulated NVMe controller: consume every pending SQ entry, in
+    place, and return the completion stream.  Returns ``(qs,
+    Completions)``.
+
+    Demand commands come back ahead of readahead commands, stable in ring
+    order within a class; the sort runs only when readahead is pending.
+    With ``n_tenants > 1`` each priority class is drained weighted-fair:
+    the i-th pending command of tenant t within its (tenant, priority)
+    class finishes at virtual time ``float32(i + 1) / float32(weight[t])``,
+    and the stream is the reference's ``lexsort((pos, vfinish,
+    sort_key))``, built from stable sorts, last key first; it runs when
+    readahead is pending or more than one tenant has commands.  The
+    arbitration gate is a host branch (one device sync) where the
+    reference has a ``lax.cond``.  ``fault`` resolves each command's
+    status, error and retry counts from its ``(device, sq_ticket)``
+    stamp, as :func:`drain_accounting` does.
+    """
+    dev_t = qs.sq_key.device
+    nd, gsize, depth = qs.n_devices, qs.group_size, qs.depth
+    nt = qs.n_tenants
+    pending = qs.sq_key >= 0
+
+    def group_sum(x):
+        return x.reshape(nd, gsize * depth).sum(1, dtype=torch.int32)
+
+    def per_tenant(mask):
+        flat = mask.reshape(-1)
+        out = torch.zeros((nt,), dtype=torch.int32, device=dev_t)
+        return out.index_add_(
+            0, torch.where(flat, qs.sq_tenant.reshape(-1), 0).to(torch.int64),
+            flat.to(torch.int32))
+
+    count = pending.sum(dtype=torch.int32)
+    count_dev = group_sum(pending)
+    count_tenant = per_tenant(pending)
+    flat_pend = pending.reshape(-1)
+    flat_prio = qs.sq_prio.reshape(-1)
+    flat_tenant = qs.sq_tenant.reshape(-1)
+    zd = torch.zeros((nd,), dtype=torch.int32, device=dev_t)
+    # bamlint: ignore[BAM104] -- fault is static config, not a tensor
+    if fault is not None and fault.enabled:
+        dev_of_entry = torch.div(
+            torch.arange(qs.num_queues, dtype=torch.int32, device=dev_t),
+            gsize, rounding_mode="floor")[:, None]
+        ok_e, retries_e, transient_e = fault.command_status(dev_of_entry,
+                                                            qs.sq_ticket)
+        err_e = pending & ~ok_e
+        flat_status = err_e.to(torch.int32).reshape(-1)
+        error_dev = group_sum(err_e)
+        error_tenant = per_tenant(err_e)
+        retries_dev = group_sum(torch.where(pending, retries_e, 0))
+        transient = torch.where(pending, transient_e, 0).sum(
+            dtype=torch.int32)
+        err_writes_dev = group_sum(err_e & qs.sq_is_write)
+        retry_writes_dev = group_sum(
+            torch.where(pending & qs.sq_is_write, retries_e, 0))
+        fkw = dict(error_dev=error_dev, error_tenant=error_tenant,
+                   retries_dev=retries_dev, transient=transient,
+                   err_reads_dev=error_dev - err_writes_dev,
+                   err_writes_dev=err_writes_dev,
+                   retry_reads_dev=retries_dev - retry_writes_dev,
+                   retry_writes_dev=retry_writes_dev)
+    else:
+        flat_status = torch.zeros_like(flat_prio)
+        fkw = dict(error_dev=zd, error_tenant=torch.zeros_like(count_tenant),
+                   retries_dev=zd.clone(),
+                   transient=torch.zeros((), dtype=torch.int32,
+                                         device=dev_t),
+                   err_reads_dev=zd.clone(), err_writes_dev=zd.clone(),
+                   retry_reads_dev=zd.clone(), retry_writes_dev=zd.clone())
+    flat = [qs.sq_key.reshape(-1).clone(), qs.sq_dst.reshape(-1).clone(),
+            qs.sq_is_write.reshape(-1).clone(), flat_prio.clone(),
+            flat_tenant.clone(), flat_pend, flat_status]
+
+    has_ra = flat_pend & (flat_prio != PRIO_DEMAND)
+    gate = has_ra.any()
+    if nt > 1:
+        gate = gate | ((count_tenant > 0).sum() > 1)
+    if bool(gate):  # bamlint: ignore[BAM102] -- the arbitration gate
+        sort_key = torch.where(flat_pend, flat_prio,
+                               torch.full_like(flat_prio, 2 ** 31 - 1))
+        order = torch.arange(sort_key.shape[0], device=dev_t)
+        if nt > 1:
+            w = torch.tensor(qs.tenant_weights, dtype=torch.float32,
+                             device=dev_t)
+            cls = (flat_tenant * 2 + flat_prio.clamp(0, 1)).to(torch.int64)
+            oh = torch.zeros((cls.shape[0], 2 * nt), dtype=torch.int32,
+                             device=dev_t)
+            oh.scatter_(1, cls[:, None], flat_pend.to(torch.int32)[:, None])
+            rank = torch.gather(torch.cumsum(oh, 0, dtype=torch.int32) - oh,
+                                1, cls[:, None])[:, 0]
+            vfinish = (rank + 1).to(torch.float32) \
+                / w[flat_tenant.to(torch.int64)]
+            order = _stable_order(vfinish, order)
+        order = _stable_order(sort_key, order)
+        flat = [x[order] for x in flat]
+    keys, dst, is_write, prio, ten, valid, status = flat
+    comps = Completions(keys=keys, dst=dst, is_write=is_write, prio=prio,
+                        tenant=ten, valid=valid, status=status, count=count,
+                        count_dev=count_dev, count_tenant=count_tenant,
+                        **fkw)
+    _retire(qs, count, count_dev, count_tenant)
+    return qs, comps
 
 
 def in_flight(qs: QueueState) -> torch.Tensor:

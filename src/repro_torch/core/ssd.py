@@ -3,7 +3,10 @@
 Port of ``repro.core.ssd``: the ``SSDSpec`` table (paper Table III), block
 striping over an array of devices (remapped around hard-failed ones), the
 host-side Little's-law service time (``ArrayOfSSDs.service_time``, which
-the paged-KV manager charges), the per-device service-time model, and the
+the paged-KV manager charges), the §II-C sizing helpers
+(``required_queue_depth``, ``target_iops_for_link``,
+``min_ssds_for_target``) and the device cost model
+(``ArrayOfSSDs.cost_usd``), the per-device service-time model, and the
 ``FaultModel``: a command's retry loop resolved in closed form from a
 counter hash of ``(device, ticket, attempt)``.
 
@@ -143,6 +146,28 @@ def _bincount_masked(idx: torch.Tensor, mask: torch.Tensor,
     out = torch.zeros((n,), dtype=torch.int32, device=idx.device)
     return out.index_add_(0, torch.where(mask, idx, 0).to(torch.int64),
                           mask.to(torch.int32))
+
+
+def required_queue_depth(target_iops: float, latency_s: float) -> int:
+    """Q_d = T x L (paper §II-C): the requests that must be in flight to
+    deliver ``target_iops`` at ``latency_s``."""
+    return int(math.ceil(target_iops * latency_s))
+
+
+def target_iops_for_link(link_bw: float, block_bytes: int) -> float:
+    """T such that T x block = the link's bandwidth (26.3 GB/s over 512 B
+    blocks: 51M/s)."""
+    return link_bw / block_bytes
+
+
+def min_ssds_for_target(spec: SSDSpec, block_bytes: int, target_iops: float,
+                        write: bool = False) -> int:
+    """Devices of ``spec`` needed to reach ``target_iops``, each capped by
+    its own link."""
+    per_dev = spec.write_iops(block_bytes) if write \
+        else spec.read_iops(block_bytes)
+    per_dev = min(per_dev, spec.link_bw / block_bytes)
+    return int(math.ceil(target_iops / per_dev))
 
 
 def sustained_rate(concurrent: float, latency_s: float,
@@ -323,3 +348,6 @@ class ArrayOfSSDs:
                             torch.zeros_like(n))
         t_link = n.sum() * f32(float(block_bytes)) / f32(self.accel_link_bw)
         return torch.maximum(t_dev.max(), t_link), t_dev
+
+    def cost_usd(self, capacity_gb: float) -> float:
+        return capacity_gb * self.spec.dollars_per_gb

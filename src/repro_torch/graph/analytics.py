@@ -109,6 +109,34 @@ class BamGraph:
             edges=arr, state=st)
 
 
+    @staticmethod
+    def from_runtime(rt, rst, name: str, indptr: np.ndarray) -> "BamGraph":
+        """A CSR graph whose edge-target array is the ``BamRuntime``
+        tenant ``name``: :func:`bfs` and :func:`cc` then run against the
+        shared cache and rings under the tenant's way quota and weight.
+        ``state`` is the tenant's view of ``rst``; fold a traversal's state
+        back with ``rt.absorb(rst, name, state)``."""
+        arr = rt.array(name)
+        dev = arr.device
+        n_nodes = len(indptr) - 1
+        n_edges = arr.size
+        if int(indptr[-1]) != n_edges:
+            raise ValueError(
+                f"indptr covers {int(indptr[-1])} edges but tenant "
+                f"{name!r} holds {n_edges}")
+        counts = torch.from_numpy(np.diff(np.asarray(indptr))).to(dev)
+        edge_src = torch.repeat_interleave(
+            torch.arange(n_nodes, dtype=torch.int32, device=dev), counts,
+            output_size=n_edges)
+        return BamGraph(
+            n_nodes=n_nodes, n_edges=n_edges,
+            indptr=torch.as_tensor(np.asarray(indptr), dtype=torch.int32,
+                                   device=dev),
+            edge_src=edge_src,
+            edge_ids=torch.arange(n_edges, dtype=torch.int32, device=dev),
+            edges=arr, state=rt.tenant_view(rst, name))
+
+
 def _frontier_req(g: BamGraph, depth: torch.Tensor, it: int) -> IORequest:
     """Read request for exactly the frontier-at-``it``'s edges."""
     active = (depth == it)[g.edge_src]

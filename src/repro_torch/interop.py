@@ -10,6 +10,11 @@ such a dict (for example one made from the JAX package's state, which has
 the same field names), so a run can resume where another left off;
 :func:`state_to_numpy` goes back.  Float counters become float64 and the
 rest keep their dtypes (int32, bool, and the cache line dtype).
+
+A ``RuntimeState`` travels the same way, with the per-tenant metrics under
+``"tenant_metrics.<tid>.<field>"`` and each device-resident tenant store
+under ``"storages.<tid>.data"`` (:func:`runtime_state_from_numpy`,
+:func:`runtime_state_to_numpy`).
 """
 from __future__ import annotations
 
@@ -18,17 +23,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.bam_array import BamState
+from repro_torch.core.bam_array import BamState, RuntimeState
 from repro_torch.core.cache import CacheState
 from repro_torch.core.metrics import IOMetrics
 from repro_torch.core.queues import QueueState
+from repro_torch.core.storage import HBMStorage
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.utils import resolve_device
 
 _STATIC = {
     "cache": ("num_sets", "ways", "line_elems"),
     "queues": ("num_queues", "depth", "n_devices", "stripe_blocks",
-               "n_tenants", "failed_devices"),
+               "n_tenants", "tenant_weights", "failed_devices"),
 }
 
 
@@ -49,15 +55,34 @@ def _to_torch(a, device, widen: bool = False) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _group(d, prefix, cls):
+    return {f: d[f"{prefix}.{f}"] for f in _tensor_fields(cls, prefix)}
+
+
+def _metrics_from(d, prefix, device) -> IOMetrics:
+    return IOMetrics(**{k: _to_torch(v, device, widen=True)
+                        for k, v in _group(d, prefix, IOMetrics).items()})
+
+
+def _put(out: dict, prefix: str, obj, group: str) -> None:
+    """Copies of ``obj``'s tensor fields into ``out`` under ``prefix``."""
+    for f in _tensor_fields(type(obj), group):
+        t = getattr(obj, f).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[f"{prefix}.{f}"] = t.numpy().copy()
+
+
 def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1,
-                     failed_devices=()) -> BamState:
+                     failed_devices=(), tenant_weights=None) -> BamState:
     """A port ``BamState`` on ``device`` from a dict of numpy arrays.
 
     Static sizes come from the arrays' shapes; ``stripe_blocks`` and
-    ``failed_devices`` are the SSD array's.  Float32 metric counters are
-    widened to float64; cache line data keeps its dtype."""
+    ``failed_devices`` are the SSD array's, ``tenant_weights`` the rings'
+    (default all 1).  Float32 metric counters are widened to float64;
+    cache line data keeps its dtype."""
     def group(prefix, cls):
-        return {f: d[f"{prefix}.{f}"] for f in _tensor_fields(cls, prefix)}
+        return _group(d, prefix, cls)
 
     c = group("cache", CacheState)
     tags = np.asarray(c["tags"])
@@ -67,17 +92,17 @@ def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1,
         **{k: _to_torch(v, device) for k, v in c.items()})
     q = group("queues", QueueState)
     sq_key = np.asarray(q["sq_key"])
+    n_tenants = np.asarray(q["tenant_enqueued"]).shape[0]
     queues = QueueState(
         num_queues=sq_key.shape[0], depth=sq_key.shape[1],
         n_devices=np.asarray(q["rr_ptr"]).shape[0],
-        stripe_blocks=stripe_blocks,
-        n_tenants=np.asarray(q["tenant_enqueued"]).shape[0],
+        stripe_blocks=stripe_blocks, n_tenants=n_tenants,
+        tenant_weights=tuple(float(w) for w in (
+            tenant_weights or (1.0,) * n_tenants)),
         failed_devices=tuple(sorted({int(x) for x in failed_devices})),
         **{k: _to_torch(v, device) for k, v in q.items()})
-    m = group("metrics", IOMetrics)
-    metrics = IOMetrics(**{k: _to_torch(v, device, widen=True)
-                           for k, v in m.items()})
-    return BamState(cache=cache, queues=queues, metrics=metrics)
+    return BamState(cache=cache, queues=queues,
+                    metrics=_metrics_from(d, "metrics", device))
 
 
 def state_to_numpy(st: BamState) -> dict:
@@ -86,15 +111,46 @@ def state_to_numpy(st: BamState) -> dict:
     the port updates a state in place, so a view of a CPU state would
     change with it."""
     out = {}
-    groups = (("cache", st.cache), ("queues", st.queues),
-              ("metrics", st.metrics))
-    # host loops over dataclass fields (eager torch, nothing is traced)
-    for prefix, obj in groups:  # bamlint: ignore[BAM104]
-        for f in _tensor_fields(type(obj), prefix):  # bamlint: ignore[BAM104]
-            t = getattr(obj, f).detach().cpu()
-            if t.dtype == torch.bfloat16:
-                t = t.float()
-            out[f"{prefix}.{f}"] = t.numpy().copy()
+    # host loops over the state's parts (eager torch, nothing is traced)
+    for prefix, obj in (("cache", st.cache), ("queues", st.queues),  # bamlint: ignore[BAM104]
+                        ("metrics", st.metrics)):
+        _put(out, prefix, obj, prefix)
+    return out
+
+
+def runtime_state_from_numpy(d: dict, device=None, *,
+                             stripe_blocks: int = 1, failed_devices=(),
+                             tenant_weights=None) -> RuntimeState:
+    """A port ``RuntimeState`` on ``device`` (``"cuda"`` unless the caller
+    asks for another) from a dict of numpy arrays (see
+    :func:`state_from_numpy`): the shared cache and rings, the global
+    metrics, one ``IOMetrics`` per tenant and the device-resident tenant
+    stores (``None`` where the dict holds none)."""
+    device = resolve_device(device)
+    base = state_from_numpy(d, device, stripe_blocks=stripe_blocks,
+                            failed_devices=failed_devices,
+                            tenant_weights=tenant_weights)
+    nt = base.queues.n_tenants
+    return RuntimeState(
+        cache=base.cache, queues=base.queues, metrics=base.metrics,
+        tenant_metrics=tuple(_metrics_from(d, f"tenant_metrics.{i}", device)
+                             for i in range(nt)),
+        storages=tuple(
+            HBMStorage(_to_torch(d[f"storages.{i}.data"], device))
+            if f"storages.{i}.data" in d else None for i in range(nt)))
+
+
+def runtime_state_to_numpy(rst: RuntimeState) -> dict:
+    """The inverse of :func:`runtime_state_from_numpy`; the arrays are
+    copies, as in :func:`state_to_numpy`."""
+    out = state_to_numpy(BamState(cache=rst.cache, queues=rst.queues,
+                                  metrics=rst.metrics))
+    # host loops over the tenants (eager torch, nothing is traced)
+    for i, m in enumerate(rst.tenant_metrics):  # bamlint: ignore[BAM104]
+        _put(out, f"tenant_metrics.{i}", m, "metrics")
+    for i, s in enumerate(rst.storages):  # bamlint: ignore[BAM104]
+        if s is not None:
+            out[f"storages.{i}.data"] = s.data.detach().cpu().numpy().copy()
     return out
 
 

@@ -200,16 +200,34 @@ def test_hbm_backend_matches_sim_backend():
 
 
 def test_unported_options_raise():
-    """Only the legacy step-by-step path is still unported; readahead, the
-    prefetch request kind and an enabled fault model build and run (their
-    differential tests are ``test_torch_prefetch.py`` and
-    ``test_torch_faults.py``)."""
+    """Every build option of the reference now runs: the legacy
+    ``fused_rounds=False`` path builds and gives the fused path's values and
+    state on a read/write/flush sequence (``test_torch_legacy.py`` holds it
+    against the reference), and readahead, the prefetch request kind and an
+    enabled fault model build and run.  Only the default device raises
+    without a card."""
     from repro_torch.core.prefetch import PrefetchConfig
     from repro_torch.core.ssd import FaultModel
 
-    data = np.zeros(64, np.float32)
-    with pytest.raises(NotImplementedError):
-        TArray.build(data, device="cpu", fused_rounds=False, **CFG)
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal(600).astype(np.float32)
+    (fa, fs), (la, ls) = [TArray.build(data, device="cpu", fused_rounds=f,
+                                       **CFG) for f in (True, False)]
+    assert fa.fused_rounds and not la.fused_rounds
+    for _ in range(2):
+        idx = torch.from_numpy(_idx(rng, N) % 600)
+        w = torch.from_numpy(rng.choice(600, N, replace=False).astype(
+            np.int32))
+        vals = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+        fv, fs = fa.read(fs, idx)
+        lv, ls = la.read(ls, idx)
+        assert torch.equal(fv, lv)
+        fs, ls = fa.write(fs, w, vals), la.write(ls, w, vals)
+    fs, ls = fa.flush(fs), la.flush(ls)
+    a, b = state_to_numpy(fs), state_to_numpy(ls)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert torch.equal(fa.storage.data, la.storage.data)
     ta, ts = TArray.build(data, device="cpu", prefetch=PrefetchConfig(True),
                           ssd=TSSDs(INTEL_OPTANE_P5800X, 2, fault=FaultModel(
                               failed_devices=(1,))), **CFG)

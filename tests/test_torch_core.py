@@ -22,7 +22,7 @@ from repro_torch.core.coalescer import coalesce as tcoalesce
 from repro_torch.core.ssd import device_histogram
 
 from _torch_port import (  # noqa: F401
-    assert_fields_equal, fast_reference_compiles)
+    assert_fields_equal, assert_states_equal, fast_reference_compiles)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -203,3 +203,75 @@ def test_device_histogram_matches_reference():
         np.testing.assert_array_equal(
             device_histogram(T(keys), nd, T(mask), sb).numpy(),
             np.asarray(jhist(jnp.asarray(keys), nd, jnp.asarray(mask), sb)))
+
+
+def test_sizing_helpers_match_reference():
+    """The §II-C Little's-law sizing helpers and the device cost model:
+    the reference's numbers exactly (host-side Python arithmetic)."""
+    from repro.core import ssd as JS
+    from repro_torch.core import ssd as TS
+
+    for name, spec in TS.SSD_PRESETS.items():
+        jspec = JS.SSD_PRESETS[name]
+        for bb in (512, 1024, 4096):
+            for write in (False, True):
+                for target in (1e6, 5.1e7):
+                    assert TS.min_ssds_for_target(spec, bb, target, write) \
+                        == JS.min_ssds_for_target(jspec, bb, target, write)
+            assert TS.target_iops_for_link(TS.PCIE_GEN4_X16_BW, bb) \
+                == JS.target_iops_for_link(JS.PCIE_GEN4_X16_BW, bb)
+        assert TS.required_queue_depth(5.1e7, spec.latency_s) \
+            == JS.required_queue_depth(5.1e7, jspec.latency_s)
+        for n in (1, 4, 10):
+            assert TS.ArrayOfSSDs(spec, n).cost_usd(1600.0) \
+                == JS.ArrayOfSSDs(jspec, n).cost_usd(1600.0)
+
+
+def test_software_pipeline_matches_sequential():
+    """``pipelined_bam_map`` (submit step t+1, then wait step t, so two
+    wavefronts are in flight) against the reference's on the same data:
+    every step's output and the whole state after the map.  Then
+    ``software_pipeline``'s synchronous ``read_fn`` adapter with stacked
+    tuple outputs, over a read whose state records the order of its
+    reads, against the reference's: outputs, carry and read state."""
+    from repro.core import BamArray as JArray
+    from repro.core.pipeline import (pipelined_bam_map as jmap,
+                                     software_pipeline as jpipe)
+    from repro_torch.core.bam_array import BamArray
+    from repro_torch.core.pipeline import pipelined_bam_map, software_pipeline
+
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal(3000).astype(np.float32)
+    idx_np = rng.integers(0, 3000, (5, 16)).astype(np.int32)
+    idx_seq = torch.from_numpy(idx_np)
+    cfg = dict(block_elems=16, num_sets=8, ways=2)
+    ja, js = JArray.build(data, kernel_impl="ref", **cfg)
+    jdata = jnp.asarray(data)
+
+    def compute(carry, vals, idx):
+        return carry + 1, (vals.max(), idx[0])
+
+    def ref(s, q):
+        ys, s = jmap(ja, s, q, jnp.max)
+        order, n, out = jpipe(lambda o, i: (jdata[i], o * 7 + i[0]),
+                              compute, q, jnp.int32(0), 0)
+        return ys, s, order, n, out
+
+    jys, js, jorder, jn, (jmx, jfirst) = jax.jit(ref)(js,
+                                                      jnp.asarray(idx_np))
+    arr, st = BamArray.build(data, device="cpu", **cfg)
+    ys, st = pipelined_bam_map(arr, st, idx_seq, lambda v: v.max())
+    np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
+    np.testing.assert_array_equal(ys.numpy(), data[idx_np].max(axis=1))
+    assert_states_equal(st, js, "pipelined_bam_map")
+    assert float(st.metrics.max_tokens_in_flight) == 2
+
+    tdata = torch.from_numpy(data)
+    order, n, (mx, first) = software_pipeline(
+        lambda o, i: (tdata[i], o * 7 + i[0]), compute, idx_seq,
+        torch.tensor(0, dtype=torch.int32), 0)
+    assert int(order) == int(jorder) and n == int(jn) == 5
+    np.testing.assert_array_equal(first.numpy(), np.asarray(jfirst))
+    np.testing.assert_array_equal(mx.numpy(), np.asarray(jmx))
+    with pytest.raises(ValueError):
+        software_pipeline(None, compute, idx_seq, st, 0)

@@ -85,5 +85,15 @@ def test_scans_agree_and_readahead_raises_hit_rate():
         assert io["hit_rate"] > demand["hit_rate"], (name, io["hit_rate"])
         assert io["prefetch_accuracy"] >= 0.99, name
         assert io["amplification"] <= demand["amplification"], name
-    with pytest.raises(NotImplementedError, match="BamRuntime"):
-        TT.scan_column_runtime(None, None, "trip_dist", n_rows=ROWS)
+    # the same column as a shared-runtime tenant beside a neighbour: one
+    # full pass gives the same checksum
+    from repro_torch.core.bam_array import BamRuntime, TenantSpec
+
+    rt, rst = BamRuntime.build(
+        [TenantSpec("trip_dist", tbl.host["trip_dist"], 128),
+         TenantSpec("other", np.zeros(1024, np.float32), 128)],
+        num_sets=8, ways=4, device="cpu")
+    total, rst, nxt = TT.scan_column_runtime(rt, rst, "trip_dist",
+                                             n_rows=ROWS, wavefront=1024)
+    assert total == sums["demand"] and nxt == 0
+    rt.assert_metrics_consistent(rst)
