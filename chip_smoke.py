@@ -34,7 +34,13 @@ Phases, each of which must pass or the script exits non-zero:
    timed in bf16 on the tensor-core kernel beside SDPA and, in f32, on the
    SIMT kernel; causal and window-1024 in bf16 (head dims 64, 128, 256,
    tensor cores) and f32 (SIMT), at the forward check's shape (B 2, S 256)
-   in both, and a small non-causal ragged case in both;
+   in both, and a small non-causal ragged case in both; the model
+   families' shapes in both dtypes: flash non-causal at whisper's encoder
+   (B 2, 20 heads of 64, 1500 frames) and cross-attention (64 queries
+   against 1500 frames), causal at llava's 2880 patches + 64 tokens (32
+   over 8 heads of 128); paged at olmoe's G 1 (16 heads of 128), whisper's
+   G 1 (20 heads of 64) and gemma3-12b's global layers (16 over 8 heads of
+   256);
 5. the BaM slice at full size: BFS (async tokens) and CC over a
    GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
@@ -97,19 +103,36 @@ Phases, each of which must pass or the script exits non-zero:
    the last-token logits of 256 ``decode_step``s (paged kernel) and of
    ``forward`` (flash kernel), in float32 (TF32 off for matmuls and cuDNN;
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
-   flash, which must have run) within atol 0.15 (``DVF_LIMITS``).
+   flash, which must have run) within atol 0.15 (``DVF_LIMITS``);
+12. serving the model families at full width and depth in bf16, each
+   model freed before the next (``SERVE``): gemma3-12b (48 layers, 40 of
+   them sliding-window rings at ``max_seq`` 1280; 8 requests of 1030-1150
+   prompt tokens, past the 1024-token window, 16 new tokens,
+   ``keep_last`` 512) and olmoe-1b-7b (16 MoE layers of 64 experts, top
+   8; 8 requests of 200-400 tokens, 32 new, ``keep_last`` 128, max_seq
+   512): every request done, pages spilled and fetched, ``paged_attention``
+   launched once per paged layer per engine step; ms a step beside the
+   weight bytes a step reads;
+13. decode against forward for the families in float32 (``DVF``):
+   gemma3-12b at 6 layers (5 rings), B 2, S 1100, past the window;
+   olmoe-1b-7b at 4 layers, B 2, S 8 (forward must drop no expert
+   choice); whisper-large-v3 at 4 decoder and 4 encoder layers over 1500
+   frames, B 2, S 64 (``prefill`` fills the cross-attention KV);
+   llava-next-mistral-7b at 4 layers, B 2, S 256, then one forward over
+   2880 patch embeddings and 64 tokens (finite, one flash launch a layer).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
-runtime (its checks included), and a window of engine steps in phase 9,
-run under torch.profiler (tables in
-``chiprun_out/profile_*.txt``), and phase 9 also reports the host seconds
-spent in each KV-manager call.
+runtime (its checks included), and a window of engine steps in each
+serving phase, run under torch.profiler (tables in
+``chiprun_out/profile_*.txt``), and the serving phases also report the
+host seconds spent in each KV-manager call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
-also with their launches in each phase of 5-8; every phase sets the counts
-to 0 just before it runs and reads them just after).  Details go to
+also with their launches in each phase of 5-8, the attention kernels in
+each serving phase and each forward of 11 and 13; every phase sets the
+counts to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -726,6 +749,12 @@ def paged_live_bytes(q, kp, pt, sl) -> int:
             + 2 * q.numel() * q.element_size() + pt.numel() * 4 + B * 4)
 
 
+# (B, Hq, Hkv, D, pages of 256, seq_lens range) of the families' decode
+PAGED_FAMILY_SHAPES = [(8, 16, 16, 128, 2, (200, 432)),
+                       (8, 20, 20, 64, 2, (64, 448)),
+                       (8, 16, 8, 256, 5, (1030, 1166))]
+
+
 def attention_kernel_phase(dev, seed):
     import torch
     import torch.nn.functional as F
@@ -794,9 +823,36 @@ def attention_kernel_phase(dev, seed):
             q, kp, vp, pt, sl)),
         bound_ms=bound_ms(paged_live_bytes(q, kp, pt, sl)), bound_by="bytes",
         library_ms=None, max_abs_err=max(errs),
-        bf16_rounding_ratio=paged_ratio,
+        bf16_rounding_ratio=paged_ratio, case_errs={}, case_ratios={},
         shape=("B=8 Hq=40 Hkv=8 D=128 page=256 NP=P=5 bf16, seq_lens "
                f"{sl.tolist()}, one hole per sequence"))
+    # the model families' decode shapes: olmoe (G 1, D 128), whisper's
+    # decoder (G 1, D 64), gemma3-12b's global layers (G 2, D 256)
+    for B, Hq, Hkv, D, NP, lens in PAGED_FAMILY_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            name = f"paged_attention B={B} Hq={Hq} Hkv={Hkv} D={D} {dtype}"
+            q2, kp2, vp2, pt2, sl2 = paged_inputs(
+                B, Hq, Hkv, D, 256, NP, lens, getattr(torch, dtype), gen, dev)
+            out = paged_attention_cuda(q2, kp2, vp2, pt2, sl2)
+            err = require_close(name, out, ref.paged_attention_ref(
+                q2, kp2, vp2, pt2, sl2), dtype)
+            results["paged_attention"]["case_errs"][name] = err
+            errs.append(err)
+            if dtype == "bfloat16":
+                qf, kf, vf = q2.float(), kp2.float(), vp2.float()
+                r = bf16_rounding_ratio(
+                    out, ref.paged_attention_ref(qf, kf, vf, pt2, sl2),
+                    ref.paged_attention_ref(qf, kf, vf.abs(), pt2, sl2))
+                del qf, kf, vf
+                results["paged_attention"]["case_ratios"][name] = r
+                if r > 1:
+                    raise AssertionError(f"{name}: {r} times the bf16 "
+                                         f"rounding limit")
+            log(f"{name}: max abs err {err}"
+                + (f", {r} of the bf16 rounding limit"
+                   if dtype == "bfloat16" else ""))
+            del q2, kp2, vp2, pt2, sl2, out
+    results["paged_attention"]["max_abs_err"] = max(errs)
 
     # -- flash_attention: causal bf16 at S=4096 (timed, beside SDPA), a
     #    window of 1024, a small non-causal ragged case, and the forward
@@ -825,6 +881,13 @@ def attention_kernel_phase(dev, seed):
              (2, 40, 8, 256, 256, 128, True, None, "bfloat16"),
              (2, 6, 2, 200, 333, 64, False, None, "float32"),
              (2, 6, 2, 200, 333, 64, False, None, "bfloat16")]
+    # the model families' shapes: whisper's encoder self-attention (1500
+    # frames, G 1, D 64) and its cross-attention (64 text queries against
+    # the 1500 frames), llava's 2880 patches plus 64 text tokens (G 4)
+    cases += [(2, 20, 20, Sq, 1500, 64, False, None, dtype)
+              for Sq in (1500, 64) for dtype in ("float32", "bfloat16")]
+    cases += [(2, 32, 8, 2944, 2944, 128, True, None, dtype)
+              for dtype in ("float32", "bfloat16")]
     case_errs, ratios = {}, {}
     simt_ms = None
     for case in reversed(cases):
@@ -1971,15 +2034,41 @@ def runtime_phase(dev, seed, counters, profile=False):
 
 
 # --------------------------------------------------------------- phase 9 --
-def serving_phase(dev, seed, counters, profile=False):
-    """qwen2.5-14b at full width and depth, bf16, through the engine."""
+def weight_bytes_per_step(model, cfg, B) -> int:
+    """Weight bytes one decode step reads: every parameter, except that an
+    untied embedding table gives only the B rows it looks up.  A MoE step
+    reads every expert (each holds C >= 8 slots a sequence, filled or
+    not)."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        t = model.embed.table
+        total -= (t.shape[0] - B) * t.shape[1] * t.element_size()
+    return total
+
+
+# The served deployments: (arch, prompt length range, new tokens, keep_last,
+# max_seq, engine steps traced with --profile, all eight slots busy in
+# each window).  Eight slots each.
+SERVE = {
+    "qwen2.5-14b": ((600, 1000), 32, 512, 1280, (900, 933)),
+    "gemma3-12b": ((1030, 1150), 16, 512, 1280, (1000, 1033)),
+    "olmoe-1b-7b": ((200, 400), 32, 128, 512, (150, 183)),
+}
+
+
+def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
+                  keep=False):
+    """One deployment of SERVE at full width and depth, bf16, through the
+    engine; returns the result (and the API and model with ``keep``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model, count_params
     from repro_torch.serving import PagedKVManager, Request, ServeEngine
 
-    cfg = get_config("qwen2.5-14b")
+    cfg = get_config(arch)
+    (lo, hi), new_tokens, keep_last, max_seq, prof_window = SERVE[arch]
+    tag = f"serving {cfg.name}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     api = build_model(cfg, dev)
@@ -1987,11 +2076,12 @@ def serving_phase(dev, seed, counters, profile=False):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = count_params(model)
-    log(f"serving: {cfg.name} {n_params} parameters ({cfg.dtype}), random "
-        f"init on the card in {t_init:.3f} s")
+    log(f"{tag}: {n_params} parameters ({cfg.dtype}), random init on the "
+        f"card in {t_init:.3f} s")
 
-    B, max_seq, new_tokens = 8, 1280, 32
-    kv = PagedKVManager(keep_last=512)
+    B = 8
+    n_paged = sum(w >= max_seq for w in cfg.layer_windows(max_seq))
+    kv = PagedKVManager(keep_last=keep_last)
     kv_s = None
     if profile:
         # host seconds in each KV-manager call, device work included; the
@@ -2013,13 +2103,13 @@ def serving_phase(dev, seed, counters, profile=False):
         timed("ensure_resident")
     eng = ServeEngine(cfg, model, batch_slots=B, max_seq=max_seq,
                       kv_manager=kv, device=dev)
+    kinds = [t.kind for t in eng.cache["layers"]]
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, prompt=rng.integers(
-        2, cfg.vocab, int(rng.integers(600, 1001))).tolist(),
+        2, cfg.vocab, int(rng.integers(lo, hi + 1))).tolist(),
         max_new_tokens=new_tokens) for i in range(B)]
     for r in reqs:
         eng.submit(r)
-    prof_window = (900, 933)          # engine steps traced with --profile
     prof_res = None
     for c in counters.values():
         c.n = 0
@@ -2037,7 +2127,9 @@ def serving_phase(dev, seed, counters, profile=False):
                     eng.step()
                 torch.cuda.synchronize()
                 twall = time.perf_counter() - tp
-            prof_res = profile_table("serve", prof, twall)
+            prof_res = profile_table(
+                "serve" if arch == "qwen2.5-14b" else
+                "serve_" + arch.split("-")[0], prof, twall)
             continue
         eng.step()
     torch.cuda.synchronize()
@@ -2046,23 +2138,28 @@ def serving_phase(dev, seed, counters, profile=False):
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and len(r.out) == new_tokens for r in reqs):
-        raise AssertionError("serving: not every request completed")
+        raise AssertionError(f"{tag}: not every request completed")
     m = kv.metrics.summary()
     if not (m["write_ops"] > 0 and m["misses"] > 0):
-        raise AssertionError(f"serving: no pages spilled ({m['write_ops']}) "
+        raise AssertionError(f"{tag}: no pages spilled ({m['write_ops']}) "
                              f"or fetched ({m['misses']})")
-    want = cfg.n_layers * eng.n_steps
+    want = n_paged * eng.n_steps
     if launches["paged_attention"] != want:
-        raise AssertionError(f"serving: paged_attention launched "
+        raise AssertionError(f"{tag}: paged_attention launched "
                              f"{launches['paged_attention']} times, want "
-                             f"{want} (48 x {eng.n_steps} steps)")
+                             f"{want} ({n_paged} x {eng.n_steps} steps)")
     gen_tokens = sum(len(r.out) for r in reqs)
     all_tokens = sum(len(r.prompt) + len(r.out) for r in reqs)
+    wbytes = weight_bytes_per_step(model, cfg, B)
     res = dict(
         arch=cfg.name, params=n_params, init_s=t_init, slots=B,
-        max_seq=max_seq, prompt_lens=[len(r.prompt) for r in reqs],
+        max_seq=max_seq, keep_last=keep_last,
+        layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        prompt_lens=[len(r.prompt) for r in reqs],
         new_tokens=new_tokens, wall_s=wall, engine_steps=eng.n_steps,
         ms_per_step=wall / eng.n_steps * 1e3,
+        weight_bytes_per_step=wbytes,
+        weight_bound_ms_per_step=bound_ms(wbytes),
         generated_tokens=gen_tokens, generated_tokens_per_s=gen_tokens / wall,
         tokens_through_decode=all_tokens,
         decode_tokens_per_s=all_tokens / wall,
@@ -2073,21 +2170,30 @@ def serving_phase(dev, seed, counters, profile=False):
         kv_manager_host_s=kv_s,
         peak_device_bytes=peak, launches=launches, profiled=profile,
         profile=prof_res)
-    log(f"serving: wall {wall:.6f} s{' (with a profiled window)' if profile else ''}, "
-        f"{eng.n_steps} engine steps, {res['ms_per_step']:.6f} ms per step, "
+    log(f"{tag}: layers {res['layer_kinds']}; wall {wall:.6f} s"
+        f"{' (with a profiled window)' if profile else ''}, "
+        f"{eng.n_steps} engine steps, {res['ms_per_step']:.6f} ms per step "
+        f"(weights read a step {wbytes} bytes, "
+        f"{res['weight_bound_ms_per_step']:.6f} ms at the HBM rate), "
         f"{gen_tokens} generated tokens ({res['generated_tokens_per_s']:.6f}"
         f" tokens/s; {res['decode_tokens_per_s']:.6f} tokens/s through "
         f"decode, prompts included)")
-    log(f"serving: pages spilled {m['write_ops']:.0f} ({m['bytes_to_storage']:.0f}"
-        f" bytes), fetched {m['misses']:.0f} ({m['bytes_from_storage']:.0f} "
+    log(f"{tag}: pages spilled {m['write_ops']:.0f} "
+        f"({m['bytes_to_storage']:.0f} bytes), fetched {m['misses']:.0f} ({m['bytes_from_storage']:.0f} "
         f"bytes); simulated device time {m['sim_time_s']:.6f} s"
         + ("" if kv_s is None else f"; host time in maybe_spill "
            f"{kv_s['maybe_spill']:.6f} s, in ensure_resident "
            f"{kv_s['ensure_resident']:.6f} s"))
-    log(f"serving: peak device memory {peak} bytes ({peak / 2 ** 30:.3f} "
+    log(f"{tag}: peak device memory {peak} bytes ({peak / 2 ** 30:.3f} "
         f"GiB); launches {launches}")
     del eng
-    return api, model, res
+    if keep:
+        return api, model, res
+    del api, model
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
 
 
 def roundtrip_phase(api, model, seed):
@@ -2136,62 +2242,181 @@ def roundtrip_phase(api, model, seed):
 DVF_LIMITS = {"float32": (2e-3, 2e-3), "bfloat16": (0.15, 0.0)}
 
 
-def decode_vs_forward_phase(dev, seed, counters, dtype="float32"):
-    """Full width, 4 layers: S decode steps (paged kernel) against forward
-    (flash kernel: SIMT in float32, tensor cores in bfloat16)."""
+# The decode-vs-forward deployments: full width, depth cut to ``layers``
+# (whisper's encoder too), batch B, S tokens.  gemma3-12b's 6 layers are 5
+# local and 1 global, and S 1100 passes the 1024-token window, so decode
+# wraps the rings while forward runs the windowed flash kernel.  olmoe's
+# S is its per-sequence capacity C = 8: no expert can then take more than
+# C choices of a sequence, so forward drops none and computes decode's
+# function (at S 16 its forward dropped 15 of 1,024 choices on the card).
+DVF = {
+    "qwen2.5-14b": (4, 2, 256),
+    "gemma3-12b": (6, 2, 1100),
+    "olmoe-1b-7b": (4, 2, 8),
+    "whisper-large-v3": (4, 2, 64),
+    "llava-next-mistral-7b": (4, 2, 256),
+}
+LLAVA_TEXT = 64            # text tokens after llava's 2880 patches
+
+
+def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
+                            dtype="float32"):
+    """Full width, depth cut: S decode steps (paged kernel, rings, the
+    cross-attention over ``xkv`` that ``prefill`` fills) against forward
+    (flash kernel: SIMT in float32, tensor cores in bfloat16), last-token
+    logits within DVF_LIMITS.  MoE: forward must drop no (token, expert)
+    choice, or the two compute different functions.  llava: one more
+    forward with its 2880 patch embeddings before 64 text tokens."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen2.5-14b").replace(n_layers=4, dtype=dtype)
+    layers, B, S = DVF[arch]
+    cfg = get_config(arch).replace(n_layers=layers, dtype=dtype)
+    if cfg.enc_dec:
+        cfg = cfg.replace(n_enc_layers=layers)
+    tag = f"decode vs forward ({cfg.name}, {layers} layers, {dtype})"
     torch.cuda.reset_peak_memory_stats()
     api = build_model(cfg, dev)
-    model = api.init(seed + 3)
-    B, S = 2, 256
+    model = api.init(seed + 3, max_seq=S)
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
                          dtype=torch.int32)
+    batch = {"tokens": toks}
+    if cfg.enc_dec:
+        batch["enc_frames"] = torch.randn(
+            (B, cfg.enc_seq, cfg.d_model), generator=gen, device=dev).to(
+                cfg.compute_dtype)
     for c in counters.values():
         c.n = 0
     t0 = time.perf_counter()
-    fwd, _ = api.forward(model, {"tokens": toks})
+    fwd, aux = api.forward(model, batch)
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     fwd_launches = {k: c.n for k, c in counters.items()}
     want_kind = "flash_attention.tc" if dtype == "bfloat16" \
         else "flash_attention.simt"
-    if fwd_launches[want_kind] != cfg.n_layers:
-        raise AssertionError(f"decode vs forward ({dtype}): forward launched "
-                             f"{fwd_launches}, want {cfg.n_layers} of "
-                             f"{want_kind}")
-    cache = api.init_decode_cache(B, S)
+    # decoder self-attention; with enc-dec also the encoder's and the
+    # cross-attention of every decoder layer
+    n_flash = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                              if cfg.enc_dec else 0)
+    if fwd_launches[want_kind] != n_flash:
+        raise AssertionError(f"{tag}: forward launched {fwd_launches}, want "
+                             f"{n_flash} of {want_kind}")
+    dropped = float(aux["dropped"]) if cfg.moe else None
+    if cfg.moe and dropped != 0:
+        raise AssertionError(f"{tag}: forward dropped {dropped} (token, "
+                             f"expert) choices past capacity")
+    kinds = [t.kind for t in api.init_decode_cache(1, S)["layers"]]
+    for c in counters.values():
+        c.n = 0
     t0 = time.perf_counter()
-    for t in range(S):
-        lg, cache = api.decode_step(model, cache, toks[:, t])
+    if cfg.enc_dec:
+        lg, cache = transformer.prefill(cfg, model, batch, S)
+    else:
+        cache = api.init_decode_cache(B, S)
+        for t in range(S):
+            lg, cache = api.decode_step(model, cache, toks[:, t])
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
+    dec_launches = {k: c.n for k, c in counters.items()}
+    if dec_launches["paged_attention"] != kinds.count("paged") * S:
+        raise AssertionError(f"{tag}: decode launched {dec_launches}, want "
+                             f"{kinds.count('paged')} x {S} paged")
     a, b = lg.double(), fwd[:, -1].double()
     err = float((a - b).abs().max())
     atol, rtol = DVF_LIMITS[dtype]
     lim = dict(atol=atol, rtol=rtol)
-    if not bool(torch.isfinite(a).all()) or not bool(
-            ((a - b).abs() <= atol + rtol * b.abs()).all()):
-        raise AssertionError(f"decode vs forward ({dtype}): max abs err "
-                             f"{err} outside {lim}")
-    peak = torch.cuda.max_memory_allocated()
-    log(f"decode vs forward (4 layers, {dtype}, B {B}, S {S}): max abs err "
-        f"{err} (limit {lim}, logits max abs {float(b.abs().max())}); "
+    # the largest |a - b| / (atol + rtol |b|): at most 1 within the limit
+    ratio = float(((a - b).abs() / (atol + rtol * b.abs())).max())
+    if not bool(torch.isfinite(a).all()) or not ratio <= 1:
+        raise AssertionError(f"{tag}: max abs err {err} outside {lim} "
+                             f"({ratio} of it)")
+    del cache, fwd
+    res = dict(arch=cfg.name, max_abs_err=err, limit=lim,
+               limit_ratio=ratio, forward_s=t_fwd,
+               decode_s=t_dec, forward_launches=fwd_launches,
+               decode_launches=dec_launches,
+               layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+               layers=cfg.n_layers, B=B, S=S, dtype=dtype,
+               logits_max_abs=float(b.abs().max()), moe_dropped=dropped)
+    log(f"{tag}, B {B}, S {S}, layers {res['layer_kinds']}: max abs err "
+        f"{err} ({ratio} of the limit {lim}, logits max abs "
+        f"{float(b.abs().max())}); "
         f"forward {t_fwd:.6f} s, {S} decode steps {t_dec:.6f} s; forward "
-        f"launches {fwd_launches}; peak device memory {peak} bytes")
-    del model, cache, fwd
+        f"launches {fwd_launches}; decode launches {dec_launches}"
+        + ("" if dropped is None else f"; forward dropped {dropped}"))
+    if cfg.family == "vlm":
+        pe = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.compute_dtype)
+        for c in counters.values():
+            c.n = 0
+        t0 = time.perf_counter()
+        out, _ = api.forward(model, {"tokens": toks[:, :LLAVA_TEXT],
+                                     "patch_embeds": pe})
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        pf_launches = {k: c.n for k, c in counters.items()}
+        want_shape = (B, cfg.n_patches + LLAVA_TEXT, cfg.vocab)
+        if tuple(out.shape) != want_shape or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"{tag}: patch forward gave "
+                                 f"{tuple(out.shape)} (want {want_shape}) "
+                                 f"or non-finite logits")
+        if pf_launches[want_kind] != cfg.n_layers:
+            raise AssertionError(f"{tag}: patch forward launched "
+                                 f"{pf_launches}, want {cfg.n_layers} of "
+                                 f"{want_kind}")
+        res.update(patch_forward_s=t_pf, patch_forward_launches=pf_launches,
+                   patch_forward_shape=list(want_shape))
+        log(f"{tag}: forward over {cfg.n_patches} patches + {LLAVA_TEXT} "
+            f"tokens in {t_pf:.6f} s, logits {want_shape} finite; launches "
+            f"{pf_launches}")
+        del out, pe
+    peak = torch.cuda.max_memory_allocated()
+    res["peak_device_bytes"] = peak
+    log(f"{tag}: peak device memory {peak} bytes")
+    del model
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, limit=lim, forward_s=t_fwd, decode_s=t_dec,
-                forward_launches=fwd_launches, peak_device_bytes=peak,
-                layers=cfg.n_layers, B=B, S=S, dtype=dtype,
-                logits_max_abs=float(b.abs().max()))
+    return res
+
+
+def model_phases(dev, seed, attn, profile=False) -> dict:
+    """Phases 9-13: qwen2.5-14b serving and its spill/fetch round trip;
+    qwen's decode vs forward in float32 and bfloat16; gemma3-12b and
+    olmoe-1b-7b serving, each model freed before the next; decode vs
+    forward of gemma3-12b, olmoe-1b-7b, whisper-large-v3 and
+    llava-next-mistral-7b in float32."""
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    api, model, serve = serving_phase(dev, seed, attn, profile=profile,
+                                      keep=True)
+    out = {"serving": serve, "roundtrip": roundtrip_phase(api, model, seed)}
+    del api, model
+    free()
+    out["decode_vs_forward"] = decode_vs_forward_phase(dev, seed, attn)
+    out["decode_vs_forward_bf16"] = decode_vs_forward_phase(
+        dev, seed, attn, dtype="bfloat16")
+    for arch in ("gemma3-12b", "olmoe-1b-7b"):
+        out[f"serving_{arch}"] = serving_phase(dev, seed, attn, arch,
+                                               profile=profile)
+        free()
+    for arch in ("gemma3-12b", "olmoe-1b-7b", "whisper-large-v3",
+                 "llava-next-mistral-7b"):
+        out[f"decode_vs_forward_{arch}"] = decode_vs_forward_phase(
+            dev, seed, attn, arch)
+        free()
+    return out
 
 
 REPLACES = {
@@ -2224,8 +2449,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one more BFS and two CC rounds, 64 "
                          "wavefronts of two taxi scans, 8 rounds of the "
-                         "partitioned runtime, and a window of serving "
-                         "steps, with torch.profiler")
+                         "partitioned runtime, and a window of steps of "
+                         "each serving phase, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -2298,20 +2523,24 @@ def main() -> int:
     runtime = runtime_phase(dev, args.seed, bam, profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    api, model, serve = serving_phase(dev, args.seed, attn,
-                                      profile=args.profile)
-    rt = roundtrip_phase(api, model, args.seed)
-    del api, model
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    dvf = decode_vs_forward_phase(dev, args.seed, attn)
-    dvf_bf16 = decode_vs_forward_phase(dev, args.seed, attn, "bfloat16")
+    models = model_phases(dev, args.seed, attn, profile=args.profile)
 
     launches = dict(sres["launches"])
-    launches["paged_attention"] = serve["launches"]["paged_attention"]
-    # the tensor-core variant's run: bf16, as the timed case
-    launches["flash_attention"] = dvf_bf16["forward_launches"][
-        "flash_attention"]
+    # the attention kernels' launches on each model path (every path
+    # counts from 0): decode through the engine, full-sequence forward
+    path_launches = {
+        "paged_attention": {k: r["launches"]["paged_attention"]
+                            for k, r in models.items()
+                            if k.startswith("serving")},
+        "flash_attention": {k: r["forward_launches"]["flash_attention"]
+                            for k, r in models.items()
+                            if k.startswith("decode_vs_forward")}}
+    path_launches["flash_attention"].update(
+        {k + ":patches": r["patch_forward_launches"]["flash_attention"]
+         for k, r in models.items() if "patch_forward_launches" in r})
+    for name, per_path in path_launches.items():
+        require_launched(name, per_path)
+        launches[name] = sum(per_path.values())
     kernels = [kernel_entry(name, kres[name], launches[name])
                for name in REPLACES]
     phases = dict(sres["phase_launches"], **taxi["phase_launches"],
@@ -2323,6 +2552,8 @@ def main() -> int:
         if entry["name"] in bam:
             entry["phase_launches"] = {p: n[entry["name"]]
                                        for p, n in phases.items()}
+        else:
+            entry["phase_launches"] = path_launches[entry["name"]]
     total_s = time.perf_counter() - t_start
     log(f"chip_smoke: all phases passed in {total_s:.3f} s")
     out_dir = ROOT / "chiprun_out"
@@ -2333,10 +2564,7 @@ def main() -> int:
         build_s=t_build, build_log=build.build_log, hgmma=hgmma,
         kernels=kres,
         slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
-        runtime=runtime, serving=serve, roundtrip=rt,
-        decode_vs_forward=dvf,
-        decode_vs_forward_bf16=dvf_bf16,
-        total_s=total_s), indent=1))
+        runtime=runtime, **models, total_s=total_s), indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Port of ``repro.configs.base``: ``ArchConfig``, ``SHAPES``, ``get_config``
 and ``smoke_config``, with ``compute_dtype`` as a ``torch.dtype``.  The
 registry holds the configs whose model path is ported; the others are named
-and raise ``NotImplementedError`` (see ``ROADMAP.md`` §1 step 8).  The
+and raise ``NotImplementedError`` (see ``ROADMAP.md`` §1).  The
 dry-run's ``input_specs`` has no counterpart here.
 """
 from __future__ import annotations
@@ -125,11 +125,11 @@ class ArchConfig:
 
 
 # -------------------------------------------------------------- registry ---
-PORTED = ["qwen2_5_14b", "minitron_4b", "gemma3_12b"]
-NOT_PORTED = [
-    "llava_next_mistral_7b", "gemma3_1b", "olmoe_1b_7b",
-    "moonshot_v1_16b_a3b", "whisper_large_v3", "xlstm_1_3b", "hymba_1_5b",
+PORTED = [
+    "qwen2_5_14b", "minitron_4b", "gemma3_12b", "gemma3_1b", "olmoe_1b_7b",
+    "moonshot_v1_16b_a3b", "llava_next_mistral_7b", "whisper_large_v3",
 ]
+NOT_PORTED = ["xlstm_1_3b", "hymba_1_5b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in PORTED + NOT_PORTED}
 _ALIASES.update({
@@ -148,7 +148,7 @@ def _module(name: str):
     if mod_name in NOT_PORTED:
         raise NotImplementedError(
             f"config {name!r} is not ported to repro_torch yet "
-            "(ROADMAP.md §1 step 8)")
+            "(ROADMAP.md §1)")
     if mod_name not in PORTED:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

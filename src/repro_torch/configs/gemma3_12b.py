@@ -3,9 +3,8 @@
 Local layers use a 1024-token window; every 6th layer is global.  The
 global layers' decode KV is BaM-paged (page table + striped pool), which is
 what makes long_500k runnable (locals are O(W), globals O(S) per token).
-In ``repro_torch`` the sliding-window (ring) layers are not ported yet: the
-model runs this config only as all-global (``window=None,
-local_ratio=(0, 1)``), and raises otherwise.
+A local layer decodes over a ring of its last ``window`` tokens once
+``max_seq`` exceeds the window.
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -73,14 +73,17 @@ def _put(out: dict, prefix: str, obj, group: str) -> None:
         out[f"{prefix}.{f}"] = t.numpy().copy()
 
 
-def state_from_numpy(d: dict, device="cpu", *, stripe_blocks: int = 1,
+def state_from_numpy(d: dict, device=None, *, stripe_blocks: int = 1,
                      failed_devices=(), tenant_weights=None) -> BamState:
-    """A port ``BamState`` on ``device`` from a dict of numpy arrays.
+    """A port ``BamState`` on ``device`` (``"cuda"`` unless the caller asks
+    for another) from a dict of numpy arrays.
 
     Static sizes come from the arrays' shapes; ``stripe_blocks`` and
     ``failed_devices`` are the SSD array's, ``tenant_weights`` the rings'
     (default all 1).  Float32 metric counters are widened to float64;
     cache line data keeps its dtype."""
+    device = resolve_device(device)
+
     def group(prefix, cls):
         return _group(d, prefix, cls)
 
@@ -154,9 +157,12 @@ def runtime_state_to_numpy(rst: RuntimeState) -> dict:
     return out
 
 
+STACKED = ("blocks", "enc_blocks")     # groups stacked on a layer axis
+
+
 def _tree_pairs(model: TransformerLM):
     """(path in the reference's parameter tree, module parameter) pairs;
-    block paths start with ``("blocks", i)``."""
+    the paths of a stacked group's layer i start with ``(group, i)``."""
     def dense(path, d):
         out = [(path + ("w",), d.w)]
         if d.b is not None:
@@ -169,31 +175,52 @@ def _tree_pairs(model: TransformerLM):
             out.append((path + ("bias",), n.bias))
         return out
 
+    def attention(path, a):
+        out = []
+        for name in ("wq", "wk", "wv", "wo"):
+            out += dense(path + (name,), getattr(a, name))
+        if a.q_norm is not None:
+            out += [(path + ("q_norm",), a.q_norm),
+                    (path + ("k_norm",), a.k_norm)]
+        return out
+
+    def block(pre, bp):
+        out = norm(pre + ("ln1",), bp.ln1) + norm(pre + ("ln2",), bp.ln2)
+        out += attention(pre + ("attn",), bp.attn)
+        if bp.mlp is not None:
+            for name in ("w1", "w2", "w3"):
+                d = getattr(bp.mlp, name)
+                if d is not None:
+                    out += dense(pre + ("mlp", name), d)
+        if bp.moe is not None:
+            out += [(pre + ("moe", name), getattr(bp.moe, name))
+                    for name in ("router", "w1", "w2", "w3")]
+        if bp.xattn is not None:
+            out += norm(pre + ("ln_x",), bp.ln_x)
+            out += attention(pre + ("xattn",), bp.xattn)
+        return out
+
     pairs = [(("embed", "table"), model.embed.table)]
     for i, bp in enumerate(model.blocks):
-        pre = ("blocks", i)
-        pairs += norm(pre + ("ln1",), bp.ln1) + norm(pre + ("ln2",), bp.ln2)
-        a = bp.attn
-        for name in ("wq", "wk", "wv", "wo"):
-            pairs += dense(pre + ("attn", name), getattr(a, name))
-        if a.q_norm is not None:
-            pairs += [(pre + ("attn", "q_norm"), a.q_norm),
-                      (pre + ("attn", "k_norm"), a.k_norm)]
-        for name in ("w1", "w2", "w3"):
-            d = getattr(bp.mlp, name)
-            if d is not None:
-                pairs += dense(pre + ("mlp", name), d)
+        pairs += block(("blocks", i), bp)
     pairs += norm(("ln_f",), model.ln_f)
     if model.head is not None:
         pairs += dense(("head",), model.head)
+    if model.pos is not None:
+        pairs.append((("pos",), model.pos.table))
+    if model.enc_blocks is not None:
+        for i, bp in enumerate(model.enc_blocks):
+            pairs += block(("enc_blocks", i), bp)
+        pairs.append((("enc_pos",), model.enc_pos.table))
+        pairs += norm(("enc_ln_f",), model.enc_ln_f)
     return pairs
 
 
 def _leaf(tree, path):
-    """The array at ``path``; ``("blocks", i, ...)`` indexes layer i of the
-    stacked block arrays."""
-    if path[0] == "blocks":
-        node = tree["blocks"]
+    """The array at ``path``; ``(group, i, ...)`` of a stacked group indexes
+    layer i of its stacked arrays."""
+    if path[0] in STACKED:
+        node = tree[path[0]]
         for key in path[2:]:
             node = node[key]
         return np.asarray(node)[path[1]]
@@ -209,8 +236,11 @@ def params_from_numpy(cfg, tree: dict, device=None,
     """The port's transformer from the reference's parameter tree (numpy
     arrays; blocks stacked on a leading layer axis), on ``device`` (default
     CUDA, as :func:`repro_torch.models.model.build_model`), its weights cast
-    to ``dtype`` (default: the config's compute dtype)."""
-    model = TransformerLM(cfg, dtype=dtype, device=resolve_device(device))
+    to ``dtype`` (default: the config's compute dtype).  A learned position
+    table takes its length from the tree."""
+    max_seq = np.shape(tree["pos"])[0] if "pos" in tree else 0
+    model = TransformerLM(cfg, max_seq=max_seq, dtype=dtype,
+                          device=resolve_device(device))
     for path, param in _tree_pairs(model):
         a = _leaf(tree, path)
         if tuple(a.shape) != tuple(param.shape):
@@ -222,20 +252,21 @@ def params_from_numpy(cfg, tree: dict, device=None,
 
 def params_to_numpy(model: TransformerLM) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's nested
-    tree of float32 numpy arrays, blocks stacked on axis 0."""
+    tree of float32 numpy arrays, each stacked group's layers stacked on
+    axis 0."""
     tree: dict = {}
     stacked: dict = {}
     for path, param in _tree_pairs(model):
         a = param.detach().float().cpu().numpy()
-        if path[0] == "blocks":
-            stacked.setdefault(path[2:], []).append(a)
+        if path[0] in STACKED:
+            stacked.setdefault((path[0],) + path[2:], []).append(a)
             continue
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = a
     for sub, arrs in stacked.items():
-        node = tree.setdefault("blocks", {})
+        node = tree
         for key in sub[:-1]:
             node = node.setdefault(key, {})
         node[sub[-1]] = np.stack(arrs)

@@ -1,2 +1,2 @@
-"""Model code: the layer library, the decoder-only transformer LM and the
-model dispatcher (ports of ``repro.models``)."""
+"""Model code: the layer library, the transformer LM (dense, MoE, VLM and
+audio families) and the model dispatcher (ports of ``repro.models``)."""

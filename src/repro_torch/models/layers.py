@@ -1,11 +1,12 @@
-"""Layer library: dense projections, norms, RoPE, GQA attention, MLP,
-embedding and the logits head.
+"""Layer library: dense projections, norms, RoPE, GQA attention, MLP, MoE,
+embedding, learned positions and the logits head.
 
 Port of ``repro.models.layers`` (``dense``, ``norm_apply``,
 ``rms_norm_simple``, ``rope``, ``attention_qkv``, ``attention``, ``mlp``,
-``embed``, ``logits_head``).  Parameters live in ``nn.Module``s that keep
-the reference's layouts, so a weight carries across untransposed: a dense
-weight is ``(in, out)`` and applies as ``x @ w``.
+``moe_ffn``, ``embed``, ``logits_head``).  Parameters live in
+``nn.Module``s that keep the reference's layouts, so a weight carries
+across untransposed: a dense weight is ``(in, out)`` and applies as
+``x @ w``.
 
 Parameters are stored in the compute dtype.  The reference keeps float32
 master weights and casts them at use (``dense`` casts ``w`` to the compute
@@ -25,6 +26,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.utils import segment_rank
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -76,24 +78,51 @@ class MLP(nn.Module):
         self.w3 = Dense(cfg.d_model, cfg.d_ff, **kw) if cfg.gated_mlp else None
 
 
+class MoE(nn.Module):
+    """Router ``(D, E)`` and expert weights ``w1``, ``w3`` ``(E, D, F)`` and
+    ``w2`` ``(E, F, D)``, the reference's layouts."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=None, device=None):
+        super().__init__()
+        E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.router = _param((D, E), dtype, device)
+        self.w1 = _param((E, D, F_), dtype, device)
+        self.w2 = _param((E, F_, D), dtype, device)
+        self.w3 = _param((E, D, F_), dtype, device)
+
+
 class Embedding(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=None, device=None):
         super().__init__()
         self.table = _param((cfg.vocab, cfg.d_model), dtype, device)
 
 
+class LearnedPositions(nn.Module):
+    """A learned position table ``(rows, D)``."""
+
+    def __init__(self, rows: int, dim: int, *, dtype=None, device=None):
+        super().__init__()
+        self.table = _param((rows, dim), dtype, device)
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, gen: torch.Generator) -> None:
     """The reference's initialisation, drawn from ``gen``: dense weights
-    normal with scale 1/sqrt(in), embedding tables standard normal, biases
-    zero, norm scales one (norm biases zero)."""
+    and the MoE router and experts normal with scale 1/sqrt(in), embedding
+    tables standard normal, learned positions normal with scale 0.02,
+    biases zero, norm scales one (norm biases zero)."""
     for m in module.modules():
         if isinstance(m, Dense):
             m.w.normal_(0.0, 1.0 / math.sqrt(m.w.shape[0]), generator=gen)
             if m.b is not None:
                 m.b.zero_()
+        elif isinstance(m, MoE):
+            for w in (m.router, m.w1, m.w2, m.w3):
+                w.normal_(0.0, 1.0 / math.sqrt(w.shape[-2]), generator=gen)
         elif isinstance(m, Embedding):
             m.table.normal_(0.0, 1.0, generator=gen)
+        elif isinstance(m, LearnedPositions):
+            m.table.normal_(0.0, 0.02, generator=gen)
         elif isinstance(m, Norm):
             m.scale.fill_(1.0)
             if m.bias is not None:
@@ -191,6 +220,83 @@ def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg, h)
     return dense(p.w2, h, dtype)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest of the last axis, largest first, ties to the lower
+    index (``jax.lax.top_k``'s order; ``torch.topk`` promises none)."""
+    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
+            capacity_factor: float | None = None):
+    """Scatter-based top-k MoE with per-sequence dispatch, as the reference.
+
+    Each sequence ranks its (token, expert) choices per expert in token
+    order (``segment_rank``) and keeps those ranked below the capacity
+    ``C``; a kept choice goes to row ``e * C + rank`` of a
+    ``(B, E * C + 1, D)`` buffer, a dropped one to the trash row ``E * C``
+    (whose duplicate writes are discarded).  x: (B, S, D) -> (B, S, D) and
+    the aux dict: the reference's ``load_balance`` and ``router_z``, and
+    ``dropped``, the number of choices past capacity (a float count; the
+    reference does not return it)."""
+    B, S, D = x.shape
+    dtype = cfg.compute_dtype
+    E, K = cfg.n_experts, cfg.top_k
+    cf = capacity_factor or cfg.capacity_factor
+    C = max(8, int(math.ceil(S * K * cf / E / 8.0)) * 8)  # per-seq capacity
+
+    logits = x.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)                   # (B, S, E)
+    topv, topi = _top_k(probs, K)                           # (B, S, K)
+    topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    fe = topi.reshape(B, S * K)                             # (B, S*K)
+    # one rank over the batch: expert ids offset per sequence keep each
+    # sequence's experts apart, and the stable sort keeps token order
+    row = torch.arange(B, device=x.device)[:, None] * E
+    rank = segment_rank((fe + row).reshape(-1),
+                        torch.ones(B * S * K, dtype=torch.bool,
+                                   device=x.device)).reshape(B, S * K)
+    keep = rank < C
+    dest = torch.where(keep, fe * C + rank, E * C)          # (B, S*K)
+    tok = torch.arange(S, device=x.device).repeat_interleave(K)
+    bidx = torch.arange(B, device=x.device)[:, None]
+
+    buf = torch.zeros((B, E * C + 1, D), dtype=dtype, device=x.device)
+    buf[bidx, dest] = x.to(dtype)[:, tok]
+    h = buf[:, :E * C].reshape(B, E, C, D)
+    up = torch.einsum("becd,edf->becf", h, p.w1.to(dtype))
+    gate = torch.einsum("becd,edf->becf", h, p.w3.to(dtype))
+    y = torch.einsum("becf,efd->becd", _act(cfg, up) * gate, p.w2.to(dtype))
+    y = torch.cat([y.reshape(B, E * C, D),
+                   torch.zeros((B, 1, D), dtype=dtype, device=x.device)], 1)
+    w = topv.reshape(B, S * K).to(dtype) * keep.to(dtype)   # (B, S*K)
+    if cfg.moe_combine == "scatter":
+        # each slot's weight and token scattered, then one scatter-add of
+        # the weighted slots into the tokens (row S takes the empty slots)
+        w_slot = torch.zeros((B, E * C + 1), dtype=dtype, device=x.device)
+        w_slot[bidx, dest] = w
+        tok_slot = torch.full((B, E * C + 1), S, dtype=torch.long,
+                              device=x.device)
+        tok_slot[bidx, dest] = tok
+        out = torch.zeros((B, S + 1, D), dtype=dtype, device=x.device)
+        out.scatter_add_(1, tok_slot[..., None].expand(-1, -1, D),
+                         y * w_slot[..., None])
+        out = out[:, :S]
+    else:
+        # "gather" and "allgather" differ only in their sharding
+        out = (y[bidx, dest] * w[..., None]).reshape(B, S, K, D).sum(2)
+
+    # aux: load balance (Switch) and router z-loss
+    me = probs.mean(dim=(0, 1))                             # (E,)
+    ce = torch.zeros((B, E), device=x.device).scatter_add_(
+        1, fe, keep.float()).mean(0) / max(S * K, 1)
+    aux = {"load_balance": E * (me * ce).sum(),
+           "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+           "dropped": (~keep).sum().float()}
+    return out, aux
 
 
 def embed(cfg: ArchConfig, p: Embedding, tokens: torch.Tensor

@@ -1,7 +1,8 @@
 """Model dispatcher: one API over the ported architecture families.
 
-Port of ``repro.models.model`` for the transformer family; the SSM
-(xLSTM) and hybrid (Hymba) families raise ``NotImplementedError``.
+Port of ``repro.models.model`` for the transformer families (dense, MoE,
+VLM, audio); the SSM (xLSTM) and hybrid (Hymba) families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.utils import resolve_device
 class ModelApi:
     cfg: ArchConfig
     device: torch.device
-    init: Callable               # (seed) -> model with random weights
+    init: Callable               # (seed, max_seq=0) -> model, random weights
     forward: Callable            # (model, batch) -> (logits, aux)
     init_decode_cache: Callable  # (B, max_seq) -> cache
     decode_step: Callable        # (model, cache, tokens) -> (logits, cache)
@@ -33,12 +34,14 @@ def build_model(cfg: ArchConfig, device=None) -> ModelApi:
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP.md §1 step 8)")
+            "(ROADMAP.md §1)")
     transformer.check_supported(cfg)
     dev = resolve_device(device)
 
-    def init(seed: int = 0) -> transformer.TransformerLM:
-        model = transformer.TransformerLM(cfg, device=dev)
+    def init(seed: int = 0, max_seq: int = 0) -> transformer.TransformerLM:
+        """Random weights from ``seed``; ``max_seq`` sizes a learned
+        position table (at least 1024 rows), as the reference's init."""
+        model = transformer.TransformerLM(cfg, max_seq=max_seq, device=dev)
         L.init_random_(model, torch.Generator(device=dev).manual_seed(seed))
         return model
 

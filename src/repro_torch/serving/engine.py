@@ -94,8 +94,12 @@ class ServeEngine:
                 slot.pending_prompt = list(req.prompt)
 
     def _reset_slot_cache(self, b: int):
-        """Restore slot b to the initial cache state: every batch-first leaf
-        (pools, page table, seq_lens) gets the initial row, in place."""
+        """Restore slot b to the initial cache state, in place: every leaf
+        whose first axis has length B (pools, page tables, ring k/v and
+        ``pos``, which goes back to -1, and seq_lens) gets the initial row,
+        the reference's rule.  Enc-dec ``xkv`` is (n_layers, 2, B, ...):
+        the rule resets its layer b when n_layers == B, as the reference's
+        does, and the engine never fills it, so it stays zero either way."""
         for cur, init in zip(_leaves(self.cache), _leaves(self._slot0)):
             if cur.dim() >= 1 and cur.shape[0] == self.B:
                 cur[b] = init[0]

@@ -236,3 +236,18 @@ def test_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TArray.build(data, **CFG)
+
+
+def test_state_from_numpy_defaults_to_cuda():
+    """Without ``device=`` a resumed state goes to CUDA, as every entry
+    point's does; without a card that raises and names the CPU way."""
+    _, ts = TArray.build(np.zeros(SIZE, np.float32), device="cpu", **CFG)
+    snap = state_to_numpy(ts)
+    back = state_to_numpy(state_from_numpy(snap, device="cpu"))
+    for k, v in snap.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    if torch.cuda.is_available():
+        assert state_from_numpy(snap).cache.tags.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            state_from_numpy(snap)

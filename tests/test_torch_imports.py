@@ -1,5 +1,5 @@
-"""``repro_torch`` and ``chip_smoke.py`` stand alone: neither imports
-``jax`` nor any part of the JAX package ``repro``."""
+"""``repro_torch``, ``chip_smoke.py`` and ``tools/torch_*.py`` stand alone:
+none imports ``jax`` or any part of the JAX package ``repro``."""
 import ast
 import os
 import pathlib
@@ -51,7 +51,9 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_sources_never_name_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("torch_*.py")))
+    assert REPO / "tools" / "torch_chip_phases.py" in files
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
