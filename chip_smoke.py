@@ -38,9 +38,10 @@ Phases, each of which must pass or the script exits non-zero:
    families' shapes in both dtypes: flash non-causal at whisper's encoder
    (B 2, 20 heads of 64, 1500 frames) and cross-attention (64 queries
    against 1500 frames), causal at llava's 2880 patches + 64 tokens (32
-   over 8 heads of 128); paged at olmoe's G 1 (16 heads of 128), whisper's
-   G 1 (20 heads of 64) and gemma3-12b's global layers (16 over 8 heads of
-   256);
+   over 8 heads of 128), causal with window 1024 at hymba's forward (B 2,
+   25 over 5 heads of 64, S 1152); paged at olmoe's G 1 (16 heads of 128),
+   whisper's G 1 (20 heads of 64), gemma3-12b's global layers (16 over 8
+   heads of 256) and hymba's (25 over 5 heads of 64, 3 pages);
 5. the BaM slice at full size: BFS (async tokens) and CC over a
    GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
@@ -110,23 +111,34 @@ Phases, each of which must pass or the script exits non-zero:
    prompt tokens, past the 1024-token window, 16 new tokens,
    ``keep_last`` 512) and olmoe-1b-7b (16 MoE layers of 64 experts, top
    8; 8 requests of 200-400 tokens, 32 new, ``keep_last`` 128, max_seq
-   512): every request done, pages spilled and fetched, ``paged_attention``
-   launched once per paged layer per engine step; ms a step beside the
-   weight bytes a step reads;
+   512), hymba-1.5b (32 layers of attention and Mamba heads in parallel,
+   3 paged and 29 rings of 1024, the cache primed with 128 meta tokens at
+   construction; the same requests and sizes as olmoe's, the pools 640
+   positions) and xlstm-1.3b (42 mLSTM and 6 sLSTM layers, no KV cache;
+   the same requests): every request done; pages spilled and fetched, as
+   many fetched as spilled, where there are paged layers, none where there
+   are none; ``paged_attention`` launched once per paged layer per engine
+   step and priming step; ms a step beside the weight bytes a step reads
+   and the decode cache's bytes;
 13. decode against forward for the families in float32 (``DVF``):
    gemma3-12b at 6 layers (5 rings), B 2, S 1100, past the window;
    olmoe-1b-7b at 4 layers, B 2, S 8 (forward must drop no expert
    choice); whisper-large-v3 at 4 decoder and 4 encoder layers over 1500
    frames, B 2, S 64 (``prefill`` fills the cross-attention KV);
    llava-next-mistral-7b at 4 layers, B 2, S 256, then one forward over
-   2880 patch embeddings and 64 tokens (finite, one flash launch a layer).
+   2880 patch embeddings and 64 tokens (finite, one flash launch a layer);
+   hymba-1.5b at 4 layers (one a ring), B 2, S 1000 after the 128 meta
+   tokens, past the window (decode primes first); xlstm-1.3b at 8 layers
+   (one sLSTM), B 2, S 512 (two mLSTM chunks).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
-runtime (its checks included), and a window of engine steps in each
-serving phase, run under torch.profiler (tables in
-``chiprun_out/profile_*.txt``), and the serving phases also report the
-host seconds spent in each KV-manager call.
+runtime (its checks included), a window of engine steps in each serving
+phase, and one more forward in hymba's and xLSTM's decode-vs-forward
+phases (where the SSM scan and the mLSTM and sLSTM run), run under
+torch.profiler (tables in ``chiprun_out/profile_*.txt``), and the serving
+phases also report the host seconds spent in each KV-manager call and
+the ms a step before, in and after the traced window.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
@@ -749,10 +761,13 @@ def paged_live_bytes(q, kp, pt, sl) -> int:
             + 2 * q.numel() * q.element_size() + pt.numel() * 4 + B * 4)
 
 
-# (B, Hq, Hkv, D, pages of 256, seq_lens range) of the families' decode
+# (B, Hq, Hkv, D, pages of 256, seq_lens range) of the families' decode;
+# hymba's global layers hold 128 meta tokens before 200-400 prompt and 32
+# new tokens
 PAGED_FAMILY_SHAPES = [(8, 16, 16, 128, 2, (200, 432)),
                        (8, 20, 20, 64, 2, (64, 448)),
-                       (8, 16, 8, 256, 5, (1030, 1166))]
+                       (8, 16, 8, 256, 5, (1030, 1166)),
+                       (8, 25, 5, 64, 3, (328, 560))]
 
 
 def attention_kernel_phase(dev, seed):
@@ -827,7 +842,8 @@ def attention_kernel_phase(dev, seed):
         shape=("B=8 Hq=40 Hkv=8 D=128 page=256 NP=P=5 bf16, seq_lens "
                f"{sl.tolist()}, one hole per sequence"))
     # the model families' decode shapes: olmoe (G 1, D 128), whisper's
-    # decoder (G 1, D 64), gemma3-12b's global layers (G 2, D 256)
+    # decoder (G 1, D 64), gemma3-12b's global layers (G 2, D 256),
+    # hymba's global layers (G 5, D 64)
     for B, Hq, Hkv, D, NP, lens in PAGED_FAMILY_SHAPES:
         for dtype in ("float32", "bfloat16"):
             name = f"paged_attention B={B} Hq={Hq} Hkv={Hkv} D={D} {dtype}"
@@ -887,6 +903,10 @@ def attention_kernel_phase(dev, seed):
     cases += [(2, 20, 20, Sq, 1500, 64, False, None, dtype)
               for Sq in (1500, 64) for dtype in ("float32", "bfloat16")]
     cases += [(2, 32, 8, 2944, 2944, 128, True, None, dtype)
+              for dtype in ("float32", "bfloat16")]
+    # hymba's forward: 25 over 5 heads of 64 (G 5), 1024 prompt tokens
+    # after its 128 meta tokens, windowed at 1024
+    cases += [(2, 25, 5, 1152, 1152, 64, True, 1024, dtype)
               for dtype in ("float32", "bfloat16")]
     case_errs, ratios = {}, {}
     simt_ms = None
@@ -2036,30 +2056,56 @@ def runtime_phase(dev, seed, counters, profile=False):
 # --------------------------------------------------------------- phase 9 --
 def weight_bytes_per_step(model, cfg, B) -> int:
     """Weight bytes one decode step reads: every parameter, except that an
-    untied embedding table gives only the B rows it looks up.  A MoE step
-    reads every expert (each holds C >= 8 slots a sequence, filled or
-    not)."""
-    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    untied embedding table gives only the B rows it looks up (hymba and
+    xLSTM read their untied head whole) and hymba's meta tokens are read
+    only while priming.  A MoE step reads every expert (each holds C >= 8
+    slots a sequence, filled or not)."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    total = sum(nbytes(p) for p in model.parameters())
     if not cfg.tie_embeddings:
         t = model.embed.table
         total -= (t.shape[0] - B) * t.shape[1] * t.element_size()
+    if getattr(model, "meta", None) is not None:
+        total -= nbytes(model.meta)
     return total
+
+
+def layer_kinds(cache) -> list:
+    """Each layer's kind of a decode cache: ``paged``, ``ring``, ``mlstm``
+    or ``slstm`` (a hymba layer is ``(Tagged, ssm state)``)."""
+    return [(t[0] if isinstance(t, tuple) else t).kind
+            for t in cache["layers"]]
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor of a decode cache (pools, rings, SSM and
+    xLSTM states, page tables, lengths)."""
+    from repro_torch.serving.engine import _leaves
+
+    return sum(t.numel() * t.element_size() for t in _leaves(cache))
 
 
 # The served deployments: (arch, prompt length range, new tokens, keep_last,
 # max_seq, engine steps traced with --profile, all eight slots busy in
-# each window).  Eight slots each.
+# each window).  Eight slots each.  hymba's paged pools hold max_seq + its
+# 128 meta tokens (640 positions); xlstm-1.3b has no KV cache to page.
 SERVE = {
     "qwen2.5-14b": ((600, 1000), 32, 512, 1280, (900, 933)),
     "gemma3-12b": ((1030, 1150), 16, 512, 1280, (1000, 1033)),
     "olmoe-1b-7b": ((200, 400), 32, 128, 512, (150, 183)),
+    "hymba-1.5b": ((200, 400), 32, 128, 512, (150, 183)),
+    "xlstm-1.3b": ((200, 400), 32, 128, 512, (150, 183)),
 }
 
 
 def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
                   keep=False):
     """One deployment of SERVE at full width and depth, bf16, through the
-    engine; returns the result (and the API and model with ``keep``)."""
+    engine; returns the result (and the API and model with ``keep``).  The
+    launch counts run from before the engine is built, so hymba's priming
+    (its meta tokens through the decode path) counts toward them."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2080,7 +2126,6 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
         f"card in {t_init:.3f} s")
 
     B = 8
-    n_paged = sum(w >= max_seq for w in cfg.layer_windows(max_seq))
     kv = PagedKVManager(keep_last=keep_last)
     kv_s = None
     if profile:
@@ -2101,9 +2146,18 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
 
         timed("maybe_spill")
         timed("ensure_resident")
+    for c in counters.values():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng = ServeEngine(cfg, model, batch_slots=B, max_seq=max_seq,
                       kv_manager=kv, device=dev)
-    kinds = [t.kind for t in eng.cache["layers"]]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_prime = cfg.n_meta_tokens if eng.api.prime is not None else 0
+    kinds = layer_kinds(eng.cache)
+    n_paged = kinds.count("paged")
+    kv_cache_bytes = cache_bytes(eng.cache)
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, prompt=rng.integers(
         2, cfg.vocab, int(rng.integers(lo, hi + 1))).tolist(),
@@ -2111,14 +2165,15 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
     for r in reqs:
         eng.submit(r)
     prof_res = None
-    for c in counters.values():
-        c.n = 0
+    # (host seconds, engine steps) before, in and after the traced window
+    spans = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.queue or any(sl.req is not None for sl in eng.slots):
         if profile and eng.n_steps == prof_window[0]:
             from torch.profiler import ProfilerActivity, profile as tprof
             torch.cuda.synchronize()
+            spans["before"] = (time.perf_counter() - t0, eng.n_steps)
             with tprof(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
                 tp = time.perf_counter()
@@ -2127,6 +2182,8 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
                     eng.step()
                 torch.cuda.synchronize()
                 twall = time.perf_counter() - tp
+            spans["in"] = (twall, eng.n_steps - prof_window[0])
+            t_after, n_after = time.perf_counter(), eng.n_steps
             prof_res = profile_table(
                 "serve" if arch == "qwen2.5-14b" else
                 "serve_" + arch.split("-")[0], prof, twall)
@@ -2134,20 +2191,30 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
         eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if spans:
+        spans["after"] = (time.perf_counter() - t_after,
+                          eng.n_steps - n_after)
     launches = {k: c.n for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and len(r.out) == new_tokens for r in reqs):
         raise AssertionError(f"{tag}: not every request completed")
     m = kv.metrics.summary()
-    if not (m["write_ops"] > 0 and m["misses"] > 0):
+    if n_paged and not (m["write_ops"] > 0 and m["misses"] > 0):
         raise AssertionError(f"{tag}: no pages spilled ({m['write_ops']}) "
                              f"or fetched ({m['misses']})")
-    want = n_paged * eng.n_steps
+    if not n_paged and (m["write_ops"] or m["misses"]):
+        raise AssertionError(f"{tag}: no paged layer, yet pages spilled "
+                             f"({m['write_ops']}) or fetched ({m['misses']})")
+    if m["write_ops"] != m["misses"]:
+        raise AssertionError(f"{tag}: {m['write_ops']} pages spilled, "
+                             f"{m['misses']} fetched")
+    want = n_paged * (eng.n_steps + n_prime)
     if launches["paged_attention"] != want:
         raise AssertionError(f"{tag}: paged_attention launched "
                              f"{launches['paged_attention']} times, want "
-                             f"{want} ({n_paged} x {eng.n_steps} steps)")
+                             f"{want} ({n_paged} x ({eng.n_steps} steps + "
+                             f"{n_prime} priming steps))")
     gen_tokens = sum(len(r.out) for r in reqs)
     all_tokens = sum(len(r.prompt) + len(r.out) for r in reqs)
     wbytes = weight_bytes_per_step(model, cfg, B)
@@ -2155,6 +2222,8 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
         arch=cfg.name, params=n_params, init_s=t_init, slots=B,
         max_seq=max_seq, keep_last=keep_last,
         layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        paged_layers=n_paged, priming_steps=n_prime,
+        engine_build_s=t_build, cache_bytes=kv_cache_bytes,
         prompt_lens=[len(r.prompt) for r in reqs],
         new_tokens=new_tokens, wall_s=wall, engine_steps=eng.n_steps,
         ms_per_step=wall / eng.n_steps * 1e3,
@@ -2168,9 +2237,13 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
         bytes_from_storage=m["bytes_from_storage"],
         sim_time_s=m["sim_time_s"], page_bytes=kv.page_bytes,
         kv_manager_host_s=kv_s,
+        ms_per_step_by_span={k: t / n * 1e3 if n else None
+                             for k, (t, n) in spans.items()},
         peak_device_bytes=peak, launches=launches, profiled=profile,
         profile=prof_res)
-    log(f"{tag}: layers {res['layer_kinds']}; wall {wall:.6f} s"
+    log(f"{tag}: layers {res['layer_kinds']}; decode cache {kv_cache_bytes} "
+        f"bytes; engine built in {t_build:.6f} s ({n_prime} priming "
+        f"steps); wall {wall:.6f} s"
         f"{' (with a profiled window)' if profile else ''}, "
         f"{eng.n_steps} engine steps, {res['ms_per_step']:.6f} ms per step "
         f"(weights read a step {wbytes} bytes, "
@@ -2183,7 +2256,8 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
         f"bytes); simulated device time {m['sim_time_s']:.6f} s"
         + ("" if kv_s is None else f"; host time in maybe_spill "
            f"{kv_s['maybe_spill']:.6f} s, in ensure_resident "
-           f"{kv_s['ensure_resident']:.6f} s"))
+           f"{kv_s['ensure_resident']:.6f} s; ms a step before, in and "
+           f"after the traced window {res['ms_per_step_by_span']}"))
     log(f"{tag}: peak device memory {peak} bytes ({peak / 2 ** 30:.3f} "
         f"GiB); launches {launches}")
     del eng
@@ -2249,24 +2323,36 @@ DVF_LIMITS = {"float32": (2e-3, 2e-3), "bfloat16": (0.15, 0.0)}
 # S is its per-sequence capacity C = 8: no expert can then take more than
 # C choices of a sequence, so forward drops none and computes decode's
 # function (at S 16 its forward dropped 15 of 1,024 choices on the card).
+# hymba's 4 layers are global at {0, 2, 3} and windowed at 1, and S 1000
+# plus its 128 meta tokens passes the 1024-token window: decode (after
+# ``prime``) wraps the ring while forward runs the windowed flash kernel.
+# xlstm-1.3b's 8 layers are the least depth that holds an sLSTM (layer 7),
+# and S 512 is two mLSTM chunks of 256, so forward carries the state from
+# one chunk to the next.
 DVF = {
     "qwen2.5-14b": (4, 2, 256),
     "gemma3-12b": (6, 2, 1100),
     "olmoe-1b-7b": (4, 2, 8),
     "whisper-large-v3": (4, 2, 64),
     "llava-next-mistral-7b": (4, 2, 256),
+    "hymba-1.5b": (4, 2, 1000),
+    "xlstm-1.3b": (8, 2, 512),
 }
 LLAVA_TEXT = 64            # text tokens after llava's 2880 patches
 
 
 def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
-                            dtype="float32"):
+                            dtype="float32", profile=False):
     """Full width, depth cut: S decode steps (paged kernel, rings, the
-    cross-attention over ``xkv`` that ``prefill`` fills) against forward
-    (flash kernel: SIMT in float32, tensor cores in bfloat16), last-token
-    logits within DVF_LIMITS.  MoE: forward must drop no (token, expert)
-    choice, or the two compute different functions.  llava: one more
-    forward with its 2880 patch embeddings before 64 text tokens."""
+    cross-attention over ``xkv`` that ``prefill`` fills; hymba's after
+    ``prime``, its Mamba path one step at a time; xLSTM's recurrent steps)
+    against forward (flash kernel: SIMT in float32, tensor cores in
+    bfloat16; hymba's chunked SSM scan; xLSTM's chunkwise mLSTM and its
+    sLSTM loop), last-token logits within DVF_LIMITS.  MoE: forward must
+    drop no (token, expert) choice, or the two compute different
+    functions.  llava: one more forward with its 2880 patch embeddings
+    before 64 text tokens.  With ``profile``, one more forward runs under
+    torch.profiler (``chiprun_out/profile_forward_<family>.txt``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -2297,12 +2383,23 @@ def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
     fwd_launches = {k: c.n for k, c in counters.items()}
+    fwd_prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            api.forward(model, batch)
+            torch.cuda.synchronize()
+            twall = time.perf_counter() - tp
+        fwd_prof = profile_table("forward_" + arch.split("-")[0], prof,
+                                 twall)
     want_kind = "flash_attention.tc" if dtype == "bfloat16" \
         else "flash_attention.simt"
     # decoder self-attention; with enc-dec also the encoder's and the
-    # cross-attention of every decoder layer
-    n_flash = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
-                              if cfg.enc_dec else 0)
+    # cross-attention of every decoder layer; none in xLSTM
+    n_flash = 0 if cfg.family == "ssm" else cfg.n_layers + (
+        cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
     if fwd_launches[want_kind] != n_flash:
         raise AssertionError(f"{tag}: forward launched {fwd_launches}, want "
                              f"{n_flash} of {want_kind}")
@@ -2310,7 +2407,8 @@ def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
     if cfg.moe and dropped != 0:
         raise AssertionError(f"{tag}: forward dropped {dropped} (token, "
                              f"expert) choices past capacity")
-    kinds = [t.kind for t in api.init_decode_cache(1, S)["layers"]]
+    kinds = layer_kinds(api.init_decode_cache(1, S))
+    n_prime = cfg.n_meta_tokens if api.prime is not None else 0
     for c in counters.values():
         c.n = 0
     t0 = time.perf_counter()
@@ -2318,14 +2416,18 @@ def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
         lg, cache = transformer.prefill(cfg, model, batch, S)
     else:
         cache = api.init_decode_cache(B, S)
+        if api.prime is not None:
+            cache = api.prime(model, cache)
         for t in range(S):
             lg, cache = api.decode_step(model, cache, toks[:, t])
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     dec_launches = {k: c.n for k, c in counters.items()}
-    if dec_launches["paged_attention"] != kinds.count("paged") * S:
+    want_paged = kinds.count("paged") * (S + n_prime)
+    if dec_launches["paged_attention"] != want_paged:
         raise AssertionError(f"{tag}: decode launched {dec_launches}, want "
-                             f"{kinds.count('paged')} x {S} paged")
+                             f"{kinds.count('paged')} x ({S} + {n_prime}) "
+                             f"paged")
     a, b = lg.double(), fwd[:, -1].double()
     err = float((a - b).abs().max())
     atol, rtol = DVF_LIMITS[dtype]
@@ -2342,11 +2444,15 @@ def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
                decode_launches=dec_launches,
                layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
                layers=cfg.n_layers, B=B, S=S, dtype=dtype,
+               priming_steps=n_prime, forward_flash_layers=n_flash,
+               forward_profile=fwd_prof,
                logits_max_abs=float(b.abs().max()), moe_dropped=dropped)
     log(f"{tag}, B {B}, S {S}, layers {res['layer_kinds']}: max abs err "
         f"{err} ({ratio} of the limit {lim}, logits max abs "
         f"{float(b.abs().max())}); "
-        f"forward {t_fwd:.6f} s, {S} decode steps {t_dec:.6f} s; forward "
+        f"forward {t_fwd:.6f} s, {S} decode steps"
+        + (f" after {n_prime} priming steps" if n_prime else "")
+        + f" {t_dec:.6f} s; forward "
         f"launches {fwd_launches}; decode launches {dec_launches}"
         + ("" if dropped is None else f"; forward dropped {dropped}"))
     if cfg.family == "vlm":
@@ -2388,10 +2494,11 @@ def decode_vs_forward_phase(dev, seed, counters, arch="qwen2.5-14b",
 
 def model_phases(dev, seed, attn, profile=False) -> dict:
     """Phases 9-13: qwen2.5-14b serving and its spill/fetch round trip;
-    qwen's decode vs forward in float32 and bfloat16; gemma3-12b and
-    olmoe-1b-7b serving, each model freed before the next; decode vs
-    forward of gemma3-12b, olmoe-1b-7b, whisper-large-v3 and
-    llava-next-mistral-7b in float32."""
+    qwen's decode vs forward in float32 and bfloat16; gemma3-12b,
+    olmoe-1b-7b, hymba-1.5b and xlstm-1.3b serving, each model freed
+    before the next; decode vs forward of gemma3-12b, olmoe-1b-7b,
+    whisper-large-v3, llava-next-mistral-7b, hymba-1.5b and xlstm-1.3b in
+    float32."""
     import torch
 
     def free():
@@ -2407,14 +2514,15 @@ def model_phases(dev, seed, attn, profile=False) -> dict:
     out["decode_vs_forward"] = decode_vs_forward_phase(dev, seed, attn)
     out["decode_vs_forward_bf16"] = decode_vs_forward_phase(
         dev, seed, attn, dtype="bfloat16")
-    for arch in ("gemma3-12b", "olmoe-1b-7b"):
+    for arch in ("gemma3-12b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b"):
         out[f"serving_{arch}"] = serving_phase(dev, seed, attn, arch,
                                                profile=profile)
         free()
     for arch in ("gemma3-12b", "olmoe-1b-7b", "whisper-large-v3",
-                 "llava-next-mistral-7b"):
+                 "llava-next-mistral-7b", "hymba-1.5b", "xlstm-1.3b"):
         out[f"decode_vs_forward_{arch}"] = decode_vs_forward_phase(
-            dev, seed, attn, arch)
+            dev, seed, attn, arch,
+            profile=profile and arch in ("hymba-1.5b", "xlstm-1.3b"))
         free()
     return out
 
@@ -2449,8 +2557,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one more BFS and two CC rounds, 64 "
                          "wavefronts of two taxi scans, 8 rounds of the "
-                         "partitioned runtime, and a window of steps of "
-                         "each serving phase, with torch.profiler")
+                         "partitioned runtime, a window of steps of "
+                         "each serving phase, and one more forward of "
+                         "hymba's and xLSTM's decode-vs-forward phases, "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -2527,14 +2637,18 @@ def main() -> int:
 
     launches = dict(sres["launches"])
     # the attention kernels' launches on each model path (every path
-    # counts from 0): decode through the engine, full-sequence forward
+    # counts from 0): decode through the engine (of a model with paged
+    # layers), full-sequence forward (of a model with attention); xLSTM's
+    # paths reach neither kernel, as the reference's reach no Pallas one
     path_launches = {
         "paged_attention": {k: r["launches"]["paged_attention"]
                             for k, r in models.items()
-                            if k.startswith("serving")},
+                            if k.startswith("serving")
+                            and r["paged_layers"]},
         "flash_attention": {k: r["forward_launches"]["flash_attention"]
                             for k, r in models.items()
-                            if k.startswith("decode_vs_forward")}}
+                            if k.startswith("decode_vs_forward")
+                            and r["forward_flash_layers"]}}
     path_launches["flash_attention"].update(
         {k + ":patches": r["patch_forward_launches"]["flash_attention"]
          for k, r in models.items() if "patch_forward_launches" in r})

@@ -2,9 +2,8 @@
 
 Port of ``repro.configs.base``: ``ArchConfig``, ``SHAPES``, ``get_config``
 and ``smoke_config``, with ``compute_dtype`` as a ``torch.dtype``.  The
-registry holds the configs whose model path is ported; the others are named
-and raise ``NotImplementedError`` (see ``ROADMAP.md`` §1).  The
-dry-run's ``input_specs`` has no counterpart here.
+registry holds every config of the reference.  The dry-run's
+``input_specs`` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -128,10 +127,10 @@ class ArchConfig:
 PORTED = [
     "qwen2_5_14b", "minitron_4b", "gemma3_12b", "gemma3_1b", "olmoe_1b_7b",
     "moonshot_v1_16b_a3b", "llava_next_mistral_7b", "whisper_large_v3",
+    "xlstm_1_3b", "hymba_1_5b",
 ]
-NOT_PORTED = ["xlstm_1_3b", "hymba_1_5b"]
 
-_ALIASES = {a.replace("_", "-"): a for a in PORTED + NOT_PORTED}
+_ALIASES = {a.replace("_", "-"): a for a in PORTED}
 _ALIASES.update({
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "gemma3-12b": "gemma3_12b", "gemma3-1b": "gemma3_1b",
@@ -145,10 +144,6 @@ _ALIASES.update({
 
 def _module(name: str):
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported to repro_torch yet "
-            "(ROADMAP.md §1)")
     if mod_name not in PORTED:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

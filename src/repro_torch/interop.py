@@ -1,9 +1,10 @@
 """Carry state across packages as numpy.
 
 A ``BamState`` travels as a flat dict of arrays, keyed ``"cache.<field>"``,
-``"queues.<field>"`` and ``"metrics.<field>"``; a transformer's parameters
+``"queues.<field>"`` and ``"metrics.<field>"``; a model's parameters
 travel as the reference's nested dict, blocks stacked on a leading layer
-axis (:func:`params_from_numpy`, :func:`params_to_numpy`).
+axis, or for xLSTM a tuple of per-layer trees (:func:`params_from_numpy`,
+:func:`params_to_numpy`).
 
 :func:`state_from_numpy` builds the port's ``BamState`` on a device from
 such a dict (for example one made from the JAX package's state, which has
@@ -22,13 +23,15 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.bam_array import BamState, RuntimeState
 from repro_torch.core.cache import CacheState
 from repro_torch.core.metrics import IOMetrics
 from repro_torch.core.queues import QueueState
 from repro_torch.core.storage import HBMStorage
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models import hymba, xlstm
+from repro_torch.models.model import family_module
 from repro_torch.utils import resolve_device
 
 _STATIC = {
@@ -157,90 +160,142 @@ def runtime_state_to_numpy(rst: RuntimeState) -> dict:
     return out
 
 
-STACKED = ("blocks", "enc_blocks")     # groups stacked on a layer axis
+STACKED = ("blocks", "enc_blocks")     # groups of per-layer parameters
+MAMBA = ("w_in", "conv", "w_bc", "w_dt", "dt_bias", "a_log", "d_skip",
+         "w_out")
 
 
-def _tree_pairs(model: TransformerLM):
+def _dense(path, d):
+    out = [(path + ("w",), d.w)]
+    if d.b is not None:
+        out.append((path + ("b",), d.b))
+    return out
+
+
+def _norm(path, n):
+    out = [(path + ("scale",), n.scale)]
+    if n.bias is not None:
+        out.append((path + ("bias",), n.bias))
+    return out
+
+
+def _attention(path, a):
+    out = []
+    for name in ("wq", "wk", "wv", "wo"):
+        out += _dense(path + (name,), getattr(a, name))
+    if a.q_norm is not None:
+        out += [(path + ("q_norm",), a.q_norm),
+                (path + ("k_norm",), a.k_norm)]
+    return out
+
+
+def _mlp(path, m):
+    out = []
+    for name in ("w1", "w2", "w3"):
+        d = getattr(m, name)
+        if d is not None:
+            out += _dense(path + (name,), d)
+    return out
+
+
+def _transformer_block(pre, bp):
+    out = _norm(pre + ("ln1",), bp.ln1) + _norm(pre + ("ln2",), bp.ln2)
+    out += _attention(pre + ("attn",), bp.attn)
+    if bp.mlp is not None:
+        out += _mlp(pre + ("mlp",), bp.mlp)
+    if bp.moe is not None:
+        out += [(pre + ("moe", name), getattr(bp.moe, name))
+                for name in ("router", "w1", "w2", "w3")]
+    if bp.xattn is not None:
+        out += _norm(pre + ("ln_x",), bp.ln_x)
+        out += _attention(pre + ("xattn",), bp.xattn)
+    return out
+
+
+def _hymba_block(pre, bp):
+    out = _norm(pre + ("ln1",), bp.ln1) + _norm(pre + ("ln2",), bp.ln2)
+    out += _attention(pre + ("attn",), bp.attn)
+    out += [(pre + ("mamba", name), getattr(bp.mamba, name))
+            for name in MAMBA]
+    out += [(pre + ("n_attn",), bp.n_attn), (pre + ("n_ssm",), bp.n_ssm)]
+    return out + _mlp(pre + ("mlp",), bp.mlp)
+
+
+def _xlstm_block(pre, bp):
+    out = _norm(pre + ("ln",), bp.ln)
+    if isinstance(bp, xlstm.SLSTMBlock):
+        out += _dense(pre + ("w_in",), bp.w_in) + [(pre + ("r",), bp.r)]
+    else:
+        out += _dense(pre + ("w_up",), bp.w_up)
+        out += [(pre + (name,), getattr(bp, name))
+                for name in ("wq", "wk", "wv", "hn")]
+        out += _dense(pre + ("w_if",), bp.w_if)
+    return out + _dense(pre + ("w_down",), bp.w_down)
+
+
+def _tree_pairs(model: nn.Module):
     """(path in the reference's parameter tree, module parameter) pairs;
-    the paths of a stacked group's layer i start with ``(group, i)``."""
-    def dense(path, d):
-        out = [(path + ("w",), d.w)]
-        if d.b is not None:
-            out.append((path + ("b",), d.b))
-        return out
-
-    def norm(path, n):
-        out = [(path + ("scale",), n.scale)]
-        if n.bias is not None:
-            out.append((path + ("bias",), n.bias))
-        return out
-
-    def attention(path, a):
-        out = []
-        for name in ("wq", "wk", "wv", "wo"):
-            out += dense(path + (name,), getattr(a, name))
-        if a.q_norm is not None:
-            out += [(path + ("q_norm",), a.q_norm),
-                    (path + ("k_norm",), a.k_norm)]
-        return out
-
-    def block(pre, bp):
-        out = norm(pre + ("ln1",), bp.ln1) + norm(pre + ("ln2",), bp.ln2)
-        out += attention(pre + ("attn",), bp.attn)
-        if bp.mlp is not None:
-            for name in ("w1", "w2", "w3"):
-                d = getattr(bp.mlp, name)
-                if d is not None:
-                    out += dense(pre + ("mlp", name), d)
-        if bp.moe is not None:
-            out += [(pre + ("moe", name), getattr(bp.moe, name))
-                    for name in ("router", "w1", "w2", "w3")]
-        if bp.xattn is not None:
-            out += norm(pre + ("ln_x",), bp.ln_x)
-            out += attention(pre + ("xattn",), bp.xattn)
-        return out
-
+    the paths of layer i of a group of ``STACKED`` start with
+    ``(group, i)``."""
+    if isinstance(model, xlstm.XLSTMLM):
+        block = _xlstm_block
+    elif isinstance(model, hymba.HymbaLM):
+        block = _hymba_block
+    else:
+        block = _transformer_block
     pairs = [(("embed", "table"), model.embed.table)]
+    if isinstance(model, hymba.HymbaLM):
+        pairs.append((("meta",), model.meta))
     for i, bp in enumerate(model.blocks):
         pairs += block(("blocks", i), bp)
-    pairs += norm(("ln_f",), model.ln_f)
+    pairs += _norm(("ln_f",), model.ln_f)
     if model.head is not None:
-        pairs += dense(("head",), model.head)
-    if model.pos is not None:
+        pairs += _dense(("head",), model.head)
+    if getattr(model, "pos", None) is not None:
         pairs.append((("pos",), model.pos.table))
-    if model.enc_blocks is not None:
+    if getattr(model, "enc_blocks", None) is not None:
         for i, bp in enumerate(model.enc_blocks):
             pairs += block(("enc_blocks", i), bp)
         pairs.append((("enc_pos",), model.enc_pos.table))
-        pairs += norm(("enc_ln_f",), model.enc_ln_f)
+        pairs += _norm(("enc_ln_f",), model.enc_ln_f)
     return pairs
 
 
 def _leaf(tree, path):
-    """The array at ``path``; ``(group, i, ...)`` of a stacked group indexes
-    layer i of its stacked arrays."""
-    if path[0] in STACKED:
-        node = tree[path[0]]
-        for key in path[2:]:
+    """The array at ``path``.  A group of ``STACKED`` is either stacked on
+    a leading layer axis (``(group, i, ...)`` indexes layer i of its
+    arrays) or a tuple of per-layer trees (xLSTM's blocks)."""
+    node = tree
+    if path[0] in STACKED and not isinstance(tree[path[0]], (tuple, list)):
+        for key in (path[0],) + path[2:]:
             node = node[key]
         return np.asarray(node)[path[1]]
-    node = tree
     for key in path:
         node = node[key]
     return np.asarray(node)
 
 
+def _set_leaf(tree: dict, path, a) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = a
+
+
 @torch.no_grad()
 def params_from_numpy(cfg, tree: dict, device=None,
-                      dtype: torch.dtype | None = None) -> TransformerLM:
-    """The port's transformer from the reference's parameter tree (numpy
-    arrays; blocks stacked on a leading layer axis), on ``device`` (default
-    CUDA, as :func:`repro_torch.models.model.build_model`), its weights cast
-    to ``dtype`` (default: the config's compute dtype).  A learned position
-    table takes its length from the tree."""
+                      dtype: torch.dtype | None = None) -> nn.Module:
+    """The port's model of ``cfg``'s family from the reference's parameter
+    tree (numpy arrays; transformer and hymba blocks stacked on a leading
+    layer axis, xLSTM blocks a tuple of per-layer trees), on ``device``
+    (default CUDA, as :func:`repro_torch.models.model.build_model`), its
+    weights cast to ``dtype`` (default: the config's compute dtype; the
+    parameters the reference applies in float32 stay float32).  A learned
+    position table takes its length from the tree."""
+    _, cls = family_module(cfg)
     max_seq = np.shape(tree["pos"])[0] if "pos" in tree else 0
-    model = TransformerLM(cfg, max_seq=max_seq, dtype=dtype,
-                          device=resolve_device(device))
+    model = cls(cfg, max_seq=max_seq, dtype=dtype,
+                device=resolve_device(device))
     for path, param in _tree_pairs(model):
         a = _leaf(tree, path)
         if tuple(a.shape) != tuple(param.shape):
@@ -250,24 +305,22 @@ def params_from_numpy(cfg, tree: dict, device=None,
     return model
 
 
-def params_to_numpy(model: TransformerLM) -> dict:
+def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's nested
     tree of float32 numpy arrays, each stacked group's layers stacked on
-    axis 0."""
+    axis 0 (xLSTM's blocks a tuple of per-layer trees)."""
+    per_layer = isinstance(model, xlstm.XLSTMLM)
     tree: dict = {}
     stacked: dict = {}
     for path, param in _tree_pairs(model):
         a = param.detach().float().cpu().numpy()
-        if path[0] in STACKED:
+        if path[0] in STACKED and not per_layer:
             stacked.setdefault((path[0],) + path[2:], []).append(a)
-            continue
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = a
+        else:
+            _set_leaf(tree, path, a)
     for sub, arrs in stacked.items():
-        node = tree
-        for key in sub[:-1]:
-            node = node.setdefault(key, {})
-        node[sub[-1]] = np.stack(arrs)
+        _set_leaf(tree, sub, np.stack(arrs))
+    if per_layer:
+        tree["blocks"] = tuple(tree["blocks"][i]
+                               for i in range(len(tree["blocks"])))
     return tree

@@ -110,8 +110,15 @@ def init_random_(module: nn.Module, gen: torch.Generator) -> None:
     """The reference's initialisation, drawn from ``gen``: dense weights
     and the MoE router and experts normal with scale 1/sqrt(in), embedding
     tables standard normal, learned positions normal with scale 0.02,
-    biases zero, norm scales one (norm biases zero)."""
+    biases zero, norm scales one (norm biases zero).  A module that holds
+    parameters of its own outside these classes (hymba's Mamba path, norms
+    and meta tokens, the xLSTM blocks' ``wq``/``wk``/``wv``, ``hn`` and
+    ``r``) fills them with the reference's values in its
+    ``reset_random_(gen)``."""
     for m in module.modules():
+        reset = getattr(m, "reset_random_", None)
+        if reset is not None:
+            reset(gen)
         if isinstance(m, Dense):
             m.w.normal_(0.0, 1.0 / math.sqrt(m.w.shape[0]), generator=gen)
             if m.b is not None:

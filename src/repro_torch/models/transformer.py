@@ -38,10 +38,11 @@ BIG_WINDOW = 1 << 30
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the reference's transformer not ported yet."""
+def check_supported(cfg: ArchConfig, families=FAMILIES) -> None:
+    """Raise for a family outside ``families`` and for the parts of the
+    reference's decode not ported yet."""
     missing = []
-    if cfg.family not in FAMILIES:
+    if cfg.family not in families:
         missing.append(f"family {cfg.family!r}")
     if cfg.flash_decode_shards:
         missing.append("flash_decode_shards (shard_map over a mesh)")

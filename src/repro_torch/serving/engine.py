@@ -1,15 +1,16 @@
 """Serving engine: fixed-slot continuous batching over the model's decode
 step, with BaM paged-KV spill and fetch between steps.
 
-Port of ``repro.serving.engine``.  The engine owns ``B`` sequence slots.
-Each step:
+Port of ``repro.serving.engine``.  The engine owns ``B`` sequence slots;
+a model with a ``prime`` (hymba's meta tokens) primes the whole batch's
+cache once, at construction.  Each step:
 
   1. admit queued requests into free slots (prefill through the decode
      path, one token at a time, exact, as the reference);
   2. ``ensure_resident``: fetch every spilled page back before decode;
   3. one ``decode_step`` for the whole batch;
   4. greedy sampling, retire finished sequences (their slot's cache goes
-     back to its initial state);
+     back to its initial, primed state);
   5. every 16 steps, ``maybe_spill`` cold pages to the storage tier.
 
 Greedy sampling takes the argmax on the device and moves B token ids to
@@ -75,10 +76,16 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: List[Request] = []
         self.cache = self.api.init_decode_cache(batch_slots, max_seq)
-        # one slot's initial cache, for per-slot resets (the reference
-        # snapshots the whole batch; a single slot is enough and B times
-        # smaller at full size)
-        self._slot0 = self.api.init_decode_cache(1, max_seq)
+        if self.api.prime is not None:
+            self.cache = self.api.prime(model, self.cache)
+        # one slot's initial (primed) cache, for per-slot resets: row 0 of
+        # every batch-first leaf.  The reference snapshots the whole batch;
+        # its rows are equal, so one is enough and B times smaller at full
+        # size, and cloning it is exact where a separately primed B = 1
+        # cache is not (a GEMM at another M may round differently).
+        self._slot0 = [cur[0].clone()
+                       if cur.dim() >= 1 and cur.shape[0] == batch_slots
+                       else None for cur in _leaves(self.cache)]
         self.n_steps = 0
 
     # ------------------------------------------------------------- admin --
@@ -94,15 +101,16 @@ class ServeEngine:
                 slot.pending_prompt = list(req.prompt)
 
     def _reset_slot_cache(self, b: int):
-        """Restore slot b to the initial cache state, in place: every leaf
-        whose first axis has length B (pools, page tables, ring k/v and
-        ``pos``, which goes back to -1, and seq_lens) gets the initial row,
-        the reference's rule.  Enc-dec ``xkv`` is (n_layers, 2, B, ...):
-        the rule resets its layer b when n_layers == B, as the reference's
-        does, and the engine never fills it, so it stays zero either way."""
-        for cur, init in zip(_leaves(self.cache), _leaves(self._slot0)):
-            if cur.dim() >= 1 and cur.shape[0] == self.B:
-                cur[b] = init[0]
+        """Restore slot b to the initial (primed) cache state, in place:
+        every leaf whose first axis has length B (pools, page tables, ring
+        k/v and ``pos``, the SSM and xLSTM states, seq_lens) gets the
+        initial row, the reference's rule.  Enc-dec ``xkv`` is
+        (n_layers, 2, B, ...): the rule resets its layer b when n_layers ==
+        B, as the reference's does, and the engine never fills it, so it
+        stays zero either way."""
+        for cur, init in zip(_leaves(self.cache), self._slot0):
+            if init is not None:
+                cur[b] = init
 
     # -------------------------------------------------------------- step --
     def step(self) -> int:

@@ -1,7 +1,9 @@
 """BaM-paged KV cache management: the serving-side face of the BaM cache.
 
-Port of ``repro.serving.kv_cache``.  A decode cache holds, per layer, a
-paged pool ``(B, P, page, Hkv, hd)`` and a page table ``(B, NP)``:
+Port of ``repro.serving.kv_cache``.  A decode cache holds, per paged
+layer, a paged pool ``(B, P, page, Hkv, hd)`` and a page table ``(B, NP)``
+(the layer itself, or the first item of a tuple layer as in hymba's
+cache); a cache with no paged layer moves nothing:
 
 * the pool is the BaM cache's data array and the page table its tag store;
 * **spill** evicts cold pages (those older than the last ``keep_last``
@@ -33,17 +35,26 @@ from repro_torch.utils import Tagged
 __all__ = ["PagedKVManager", "spill_cold_pages", "fetch_holes"]
 
 
+def _tagged(item):
+    """A layer's attention entry: the layer itself, or the first item of
+    a tuple layer (hymba's ``(Tagged, ssm state)``)."""
+    return item[0] if isinstance(item, tuple) else item
+
+
 def _paged_layers(cache) -> list:
     """(layer index, entry) of every paged layer of a cache."""
-    return [(i, t.value) for i, t in enumerate(cache["layers"])
+    return [(i, t.value) for i, t in enumerate(map(_tagged, cache["layers"]))
             if isinstance(t, Tagged) and t.kind == "paged"]
 
 
 def _with_entries(cache, updates: dict):
-    """A new cache whose layers ``updates`` maps to new entries."""
+    """A new cache whose layers ``updates`` maps to new entries (a tuple
+    layer keeps its other items)."""
     layers = list(cache["layers"])
     for li, entry in updates.items():
-        layers[li] = Tagged("paged", entry)
+        item = layers[li]
+        layers[li] = ((Tagged("paged", entry),) + item[1:]
+                      if isinstance(item, tuple) else Tagged("paged", entry))
     cache2 = dict(cache)
     cache2["layers"] = tuple(layers)
     return cache2

@@ -134,14 +134,24 @@ def test_params_round_trip_and_model_api():
     assert abs(float(w.std()) * tcfg.d_ff ** 0.5 - 1.0) < 0.1
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("xlstm_1_3b", None),                   # configs not ported
-    ("hymba_1_5b", None),
-    ("qwen2_5_14b", dict(family="ssm")),     # families not ported
-    ("qwen2_5_14b", dict(family="hybrid")),
-    ("qwen2_5_14b", dict(flash_decode_shards=True)),
+@pytest.mark.parametrize("name,kw,cls", [
+    ("xlstm_1_3b", {}, "XLSTMLM"),              # configs now ported
+    ("hymba_1_5b", {}, "HymbaLM"),
+    ("qwen2_5_14b", dict(family="ssm"), "XLSTMLM"),     # families now
+    ("qwen2_5_14b", dict(family="hybrid"), "HymbaLM"),  # ported
+    ("qwen2_5_14b", dict(flash_decode_shards=True), None),  # still raises
 ])
-def test_unported_parts_raise(name, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(smoke_config(name).replace(**kw), "cpu")
+def test_unported_parts_raise(name, kw, cls):
+    """Every config and family builds the model of its family on the CPU;
+    ``flash_decode_shards`` still raises."""
+    cfg = smoke_config(name).replace(**kw)
+    if cls is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(cfg, "cpu")
+    else:
+        model = build_model(cfg, "cpu").init(0)
+        assert type(model).__name__ == cls
+        assert model.blocks[0].__class__.__module__ == (
+            "repro_torch.models.xlstm" if cfg.family == "ssm"
+            else "repro_torch.models.hymba")
     assert get_config("qwen2.5-14b").n_layers == 48

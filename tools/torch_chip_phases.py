@@ -7,9 +7,10 @@
 ``attn`` runs the attention kernel phase (every flash and paged case
 against its plain version), ``serve:ARCH`` a serving phase of
 ``chip_smoke.SERVE`` (``--profile`` traces its window of steps) and
-``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32,
+``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32
+(``--profile`` traces one more forward),
 in the order given, each with the same code and checks as in the full
-script.  It skips the BaM phases and the qwen2.5-14b serving phase, so a
+script (for example ``serve:hymba-1.5b dvf:xlstm-1.3b``).  It skips the BaM phases and the qwen2.5-14b serving phase, so a
 change to one model path can be checked on the card in minutes.  Prints
 the card's name and power limit first; results go to
 ``chiprun_out/chip_phases.json``.
@@ -60,7 +61,8 @@ def main() -> int:
                                           profile=args.profile)
         elif phase.startswith("dvf:"):
             out[phase] = cs.decode_vs_forward_phase(dev, args.seed, attn,
-                                                    phase[4:])
+                                                    phase[4:],
+                                                    profile=args.profile)
         else:
             raise SystemExit(f"unknown phase {phase!r}")
         cs.log(f"{phase}: {time.perf_counter() - t:.3f} s")
