@@ -42,6 +42,21 @@ Phases, each of which must pass or the script exits non-zero:
    25 over 5 heads of 64, S 1152); paged at olmoe's G 1 (16 heads of 128),
    whisper's G 1 (20 heads of 64), gemma3-12b's global layers (16 over 8
    heads of 256) and hymba's (25 over 5 heads of 64, 3 pages);
+   ``attn_bwd``: the flash backward kernel (dq, dk, dv) and both forward
+   kernels' log-sum-exp against their plain versions (``ATTN_BWD_CASES``:
+   gemma3-1b's B 4, 4 over 1 heads of 256, S 1024, causal with window 512
+   and without; hymba's 25 over 5 heads of 64, window 1024, S 1152;
+   whisper's non-causal encoder, 20 heads of 64, 1500 frames; qwen's 40
+   over 8 heads of 128, S 4096; a small ragged non-causal case; a case
+   with rows that see no key), in f32 within 1e-4 of the plain version's
+   largest magnitude and in bf16 against the plain version in f32 from the
+   same bf16 inputs within ``BWD_BF16_ROUNDING`` (Delta left out and the
+   window one key too wide planted as faults that must exceed it), two
+   runs bit-identical; timed beside its bound (the function's five
+   products; the design's seven, with the dQ pass's recomputed S and dP,
+   beside it), its plain version and SDPA's backward in bf16 (at
+   gemma3-1b's window shape both device times of a CUDA graph of 20
+   calls, the median of 7 replays with their spread);
 5. the BaM slice at full size: BFS (async tokens) and CC over a
    GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
@@ -92,11 +107,12 @@ Phases, each of which must pass or the script exits non-zero:
    under a fault model, partitioned and shared, on the card and on the
    CPU: every op's outputs and ``RuntimeState`` and every drain's
    ``Completions`` (the weighted-fair stream) bit-identical;
-9. serving: qwen2.5-14b at full width and depth in bf16 (random weights from
+9. serving: qwen2.5-14b at full width in bf16, its depth cut to 24 of its
+   48 layers for the script's time (``SERVE_DEPTH``; random weights from
    ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
    512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
    32 new tokens each; every request done, pages spilled and fetched, and
-   ``paged_attention`` launched 48 times per engine step;
+   ``paged_attention`` launched 24 times per engine step;
 10. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
@@ -106,8 +122,9 @@ Phases, each of which must pass or the script exits non-zero:
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
    flash, which must have run) within atol 0.15 (``DVF_LIMITS``);
 12. serving the model families at full width and depth in bf16, each
-   model freed before the next (``SERVE``): gemma3-12b (48 layers, 40 of
-   them sliding-window rings at ``max_seq`` 1280; 8 requests of 1030-1150
+   model freed before the next (``SERVE``): gemma3-12b (cut to 24 of its
+   48 layers for the script's time, ``SERVE_DEPTH``: 20 sliding-window
+   rings and 4 paged layers at ``max_seq`` 1280; 8 requests of 1030-1150
    prompt tokens, past the 1024-token window, 16 new tokens,
    ``keep_last`` 512) and olmoe-1b-7b (16 MoE layers of 64 experts, top
    8; 8 requests of 200-400 tokens, 32 new, ``keep_last`` 128, max_seq
@@ -129,21 +146,38 @@ Phases, each of which must pass or the script exits non-zero:
    2880 patch embeddings and 64 tokens (finite, one flash launch a layer);
    hymba-1.5b at 4 layers (one a ring), B 2, S 1000 after the 128 meta
    tokens, past the window (decode primes first); xlstm-1.3b at 8 layers
-   (one sLSTM), B 2, S 512 (two mLSTM chunks).
+   (one sLSTM), B 2, S 512 (two mLSTM chunks);
+14. training, f32 with TF32 off: ``train_vs_cpu`` (gemma3-1b at full width
+   cut to 6 layers, 5 windowed and 1 global, B 1, S 576, past the 512
+   window: the loss and every parameter's gradient on the card against the
+   same model on the CPU, within ``TRAIN_VS_CPU_LOSS`` and
+   ``TRAIN_VS_CPU_GRAD`` relative norm); ``train:gemma3-1b`` (full width and
+   depth, about 1.0 B parameters, remat "full", through
+   ``repro_torch.launch.train.run``: a Loader over a 1M-token synthetic
+   corpus, B 4, S 1024, 8 AdamW steps through ``run_training`` with a
+   failure injected before step 4 and no checkpoint directory, so 12 steps
+   run; finite losses, grad norms above 0, every parameter changed, one
+   restart, 2 x 26 flash forward and 26 backward launches a step run; ms a
+   step, tokens/s, peak bytes and model FLOP/s printed); ``train_ckpt``
+   (gemma3-1b's smoke config with head dim 16: a failure at step 5 restores
+   step 4 from ``LATEST``, final parameters and moments bit-identical to an
+   uninterrupted run).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
 runtime (its checks included), a window of engine steps in each serving
 phase, and one more forward in hymba's and xLSTM's decode-vs-forward
-phases (where the SSM scan and the mLSTM and sLSTM run), run under
-torch.profiler (tables in ``chiprun_out/profile_*.txt``), and the serving
+phases (where the SSM scan and the mLSTM and sLSTM run), and one more
+step of ``train:gemma3-1b`` (the flash kernels' share of its device
+time) run under torch.profiler (tables in ``chiprun_out/profile_*.txt``), and the serving
 phases also report the host seconds spent in each KV-manager call and
 the ms a step before, in and after the traced window.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
 also with their launches in each phase of 5-8, the attention kernels in
-each serving phase and each forward of 11 and 13; every phase sets the
+each serving phase, each forward of 11 and 13 and each training phase of
+14; every phase sets the
 counts to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -204,23 +238,32 @@ def cuda_time_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def capture_graph(fn, calls, stream=None):
+    """``calls`` calls of ``fn`` captured in one CUDA graph on ``stream``
+    (a new one by default), after one call outside the capture."""
+    import torch
+
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
 def cuda_graph_time_ms(fn, calls=20, reps=10) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph,
     replayed ``reps`` times between CUDA events, so the host's cost of
     issuing each call is left out."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                                  # warm up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
+    graph = capture_graph(fn, calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -977,6 +1020,249 @@ def attention_kernel_phase(dev, seed):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------- attn_bwd --
+PEAK_F32_FLOPS = 67e12          # SIMT float32, NVIDIA data sheet
+# The flash backward against its plain version on the same inputs.  In f32
+# each gradient (and each forward's lse) within 1e-4 of the plain version's
+# largest magnitude: both sum in f32, over at most Sq G terms, in other
+# orders.  In bf16 the kernel reads bf16, computes in f32 and rounds each
+# gradient to bf16 once, which moves an element by at most 2^-8 of its size;
+# so against the plain version computed in f32 from the same bf16 inputs
+# (and the forward's lse and output) an element may differ by 2^-8 of its
+# size plus the f32 limit.  A planted fault (Delta left out, the window one
+# key too wide) must exceed that limit.
+BWD_F32_LIMIT = 1e-4
+BWD_BF16_ROUNDING = dict(rel=2.0 ** -8, f32=BWD_F32_LIMIT)
+# name, B, Hq, Hkv, Sq, Skv, D, causal, window
+ATTN_BWD_CASES = [
+    ("gemma3-1b window", 4, 4, 1, 1024, 1024, 256, True, 512),
+    ("gemma3-1b global", 4, 4, 1, 1024, 1024, 256, True, None),
+    ("hymba-1.5b", 2, 25, 5, 1152, 1152, 64, True, 1024),
+    ("whisper encoder", 2, 20, 20, 1500, 1500, 64, False, None),
+    ("qwen2.5-14b", 1, 40, 8, 4096, 4096, 128, True, None),
+    ("ragged", 2, 3, 3, 33, 65, 16, False, None),
+    ("rows without a key", 1, 4, 2, 64, 24, 32, True, 8),
+]
+
+
+def live_pairs(Sq, Skv, causal, window) -> int:
+    """Live (query, key) pairs of one head under the causal and window
+    masks: the pairs this run's data needs."""
+    import numpy as np
+
+    qp = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qp - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def bwd_bound(q, k, pairs, dtype, products=5):
+    """(bound ms, what bounds it, flops) of one backward call: 2 D flops a
+    live pair for each of ``products`` products at the card's peak for the
+    inputs' type, against q, k, v, O, dO and lse read once and dq, dk, dv
+    written once.  The function needs five products (S, dV, dP, dQ, dK);
+    this kernel's design does seven (its dQ pass recomputes S and dP)."""
+    B, Hq, Sq, D = q.shape
+    flops = 2 * products * D * pairs * B * Hq
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + B * Hq * Sq * 4
+    peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", flops)
+
+
+def graph_spread_ms(fn, calls=20, readings=7, stream=None) -> tuple:
+    """(median, least, most) device ms of one call over ``readings``
+    replays, each between CUDA events, of ``calls`` calls captured in one
+    CUDA graph: a time with the spread it was read within, the host's cost
+    of issuing each call left out."""
+    import torch
+
+    graph = capture_graph(fn, calls, stream)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = []
+    for _ in range(readings):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        t.append(start.elapsed_time(end) / calls)
+    t.sort()
+    return statistics.median(t), t[0], t[-1]
+
+
+def bwd_rel_err(got, want) -> float:
+    """max |got - want| over the plain version's largest magnitude."""
+    scale = float(want.double().abs().max())
+    return float((got.double() - want.double()).abs().max()) / max(
+        scale, 1e-30)
+
+
+def bwd_bf16_ratio(got, want32) -> float:
+    """The largest |got - want32| / (2^-8 |want32| + 1e-4 max |want32|):
+    at most 1 for a kernel whose only error beyond f32 is rounding each
+    gradient to bf16 (``BWD_BF16_ROUNDING``)."""
+    w = want32.double()
+    lim = BWD_BF16_ROUNDING["rel"] * w.abs() \
+        + BWD_BF16_ROUNDING["f32"] * float(w.abs().max())
+    err = (got.double() - w).abs().nan_to_num(float("inf"))
+    return float((err / lim.clamp(min=1e-30)).max())
+
+
+def attention_bwd_phase(dev, seed):
+    """``attn_bwd``: the flash backward kernel and the forward kernels'
+    log-sum-exp against their plain versions on the card (``ATTN_BWD_CASES``
+    in f32 and bf16; both forward variants), two runs bit-identical, the
+    planted faults over the bf16 limit, and the backward timed beside its
+    bound, its plain version and SDPA's backward (bf16).  TF32 off."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        bwd_launches, flash_attention_bwd_cuda, flash_attention_cuda,
+        variant)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    cases, lse_errs, errs, abs_errs, times = {}, [], [], [], {}
+    entry = None
+    for name, B, Hq, Hkv, Sq, Skv, D, causal, window in ATTN_BWD_CASES:
+        pairs = live_pairs(Sq, Skv, causal, window)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dt)
+            k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
+            v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dt)
+            dout = torch.randn((B, Hq, Sq, D), generator=gen,
+                               device=dev).to(dt)
+            kw = dict(causal=causal, window=window)
+            kind = variant(q, k)
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            want_out, want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+            live = want_lse > -1e29
+            if not torch.equal(live, lse > -1e29):
+                raise AssertionError(f"attn_bwd {name} {dtype}: lse marks "
+                                     f"other rows as having no live key")
+            lse_err = bwd_rel_err(lse[live], want_lse[live])
+            if lse_err > BWD_F32_LIMIT:
+                raise AssertionError(f"attn_bwd {name} {dtype} ({kind}): lse "
+                                     f"error {lse_err} over {BWD_F32_LIMIT}")
+            lse_errs.append(lse_err)
+            del want_out, want_lse
+            n0 = bwd_launches.n
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+            if bwd_launches.n != n0 + 2:
+                raise AssertionError(f"attn_bwd {name}: launches not counted")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"attn_bwd {name} {dtype}: two runs of "
+                                     f"one input differ")
+            del again
+            r = dict(kind=kind, lse_err=lse_err)
+            if dtype == "float32":
+                want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                   **kw)
+                r["errs"] = [bwd_rel_err(a, b) for a, b in zip(got, want)]
+                r["abs_errs"] = [max_abs_err(a, b) for a, b in zip(got, want)]
+                if max(r["errs"]) > BWD_F32_LIMIT:
+                    raise AssertionError(f"attn_bwd {name} f32: errors "
+                                         f"{r['errs']} over {BWD_F32_LIMIT}")
+                errs.extend(r["errs"])
+                abs_errs.extend(r["abs_errs"])
+            else:
+                f32 = [t.float() for t in (q, k, v, out)]
+                do32 = dout.float()
+                want = ref.flash_attention_bwd_ref(*f32, lse, do32, **kw)
+                r["ratios"] = [bwd_bf16_ratio(a, b)
+                               for a, b in zip(got, want)]
+                planted = {"delta_left_out": ref.flash_attention_bwd_ref(
+                    *f32[:3], torch.zeros_like(f32[3]), lse, do32, **kw)}
+                if window is not None and bool(live.all()):
+                    # (where a row has no live key, its lse cannot weigh a
+                    # key the wider window would add)
+                    planted["window_plus_one"] = ref.flash_attention_bwd_ref(
+                        *f32, lse, do32, causal=causal, window=window + 1)
+                r["planted"] = {p: max(bwd_bf16_ratio(a, b)
+                                       for a, b in zip(got, w))
+                                for p, w in planted.items()}
+                del f32, do32, planted
+                if max(r["ratios"]) > 1 or min(r["planted"].values()) <= 1:
+                    raise AssertionError(f"attn_bwd {name} bf16: ratios to "
+                                         f"the bf16 limit {r}")
+            del want
+            ms = cuda_time_ms(lambda: flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout, **kw), iters=5)
+            bms, by, flops = bwd_bound(q, k, pairs, dtype)
+            design_bms = bwd_bound(q, k, pairs, dtype, products=7)[0]
+            r.update(ms=ms, bound_ms=bms, bound_by=by, flops=flops,
+                     design_bound_ms=design_bms)
+            times[f"{name} {dtype}"] = ms
+            log(f"attn_bwd {name} {dtype}: forward {kind}, {r}; on "
+                f"{nvidia_smi()}")
+            if name == ATTN_BWD_CASES[0][0] and dtype == "float32":
+                # the main path: gemma3-1b's window layers in f32 training
+                ms, *ms_spread = graph_spread_ms(
+                    lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                     dout, **kw))
+                lib_ms, *lib_spread = sdpa_bwd_ms(B, Hq, Hkv, Sq, D, causal,
+                                                  window, gen, dev)
+                entry = dict(
+                    ms=ms, ms_spread=ms_spread, bound_ms=bms, bound_by=by,
+                    flops=flops, design_bound_ms=design_bms,
+                    design_flops=flops * 7 // 5,
+                    plain_ms=cuda_time_ms(lambda: ref.flash_attention_bwd_ref(
+                        q, k, v, out, lse, dout, **kw), iters=3),
+                    library_ms=lib_ms, library_ms_spread=lib_spread)
+            cases[f"{name} {dtype}"] = r
+            del q, k, v, dout, out, lse, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    entry.update(max_abs_err=max(abs_errs), max_rel_err=max(errs),
+                 lse_max_rel_err=max(lse_errs), cases=cases, times=times,
+                 shape=("B=4 Hq=4 Hkv=1 S=1024 D=256 f32 causal window 512 "
+                        "(gemma3-1b's window layers, the train step's "
+                        "shape); max_abs_err over every f32 case, "
+                        "max_rel_err relative to the plain version's "
+                        "largest gradient"))
+    return {"flash_attention_bwd": entry}
+
+
+def sdpa_bwd_ms(B, Hq, Hkv, S, D, causal, window, gen, dev) -> tuple:
+    """The library yardstick: SDPA's backward in bf16 at the shape, the
+    time of the gradients after one forward with grad (the window as a
+    boolean mask), as ``graph_spread_ms`` gives it (eager readings of 20
+    calls ranged from 0.262 to 1.266 ms over two runs on an H100 80GB
+    HBM3 at 700 W).  Timed only; the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    q = torch.randn((B, Hq, S, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    # autograd runs a backward on its forward's stream: the captured one
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        if window is None:
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] > pos[:, None] - window)
+            if causal:
+                mask &= pos[None, :] <= pos[:, None]
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True)
+        g = torch.randn_like(o)
+    return graph_spread_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), g, retain_graph=True), stream=side)
 
 
 # --------------------------------------------------------------- phase 5 --
@@ -2098,6 +2384,11 @@ SERVE = {
     "hymba-1.5b": ((200, 400), 32, 128, 512, (150, 183)),
     "xlstm-1.3b": ((200, 400), 32, 128, 512, (150, 183)),
 }
+# Depth cuts of the served deployments, for the script's time (the
+# training phases came after them), widths unchanged: qwen2.5-14b serves 24
+# of its 48 layers, every one paged; gemma3-12b 24 of its 48, 20 rings and
+# 4 paged layers, its prompts still past the 1024-token window.
+SERVE_DEPTH = {"qwen2.5-14b": 24, "gemma3-12b": 24}
 
 
 def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
@@ -2113,6 +2404,8 @@ def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
     from repro_torch.serving import PagedKVManager, Request, ServeEngine
 
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     (lo, hi), new_tokens, keep_last, max_seq, prof_window = SERVE[arch]
     tag = f"serving {cfg.name}"
     torch.cuda.reset_peak_memory_stats()
@@ -2527,12 +2820,298 @@ def model_phases(dev, seed, attn, profile=False) -> dict:
     return out
 
 
+# ------------------------------------------------------------ training --
+# train_vs_cpu: each parameter's gradient on the card (kernels) against the
+# same model's on the CPU (plain versions), as ||g_card - g_cpu|| /
+# ||g_cpu||: both f32 with TF32 off, summed in other orders over at most
+# 262,144 terms (the tied embedding's logits), about sqrt(2^18) f32
+# roundings, 3e-5; the loss within 1e-5 relative.
+TRAIN_VS_CPU_GRAD = 1e-4
+TRAIN_VS_CPU_LOSS = 1e-5
+TRAIN_STEPS = 8
+TRAIN_FAIL_AT = 4
+
+
+def train_counters():
+    from repro_torch.kernels import flash_attention
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches}
+
+
+def train_vs_cpu_phase(dev, seed):
+    """``train_vs_cpu``: gemma3-1b at full width cut to 6 layers (5
+    windowed, 1 global), B 1, S 576 (past the 512 window), f32, seed-0
+    weights: the loss and every parameter's gradient on the card against
+    the same model on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gemma3-1b").replace(n_layers=6, dtype="float32")
+    S = 576
+    windows = [w for w in cfg.layer_windows(S) if w < S]
+    if len(windows) != 5:
+        raise AssertionError(f"train_vs_cpu: {len(windows)} window layers")
+    model = build_model(cfg, dev).init(seed).requires_grad_(True)
+    cpu_model = interop.params_from_numpy(
+        cfg, interop.params_to_numpy(model), "cpu").requires_grad_(True)
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, S)).astype(np.int32)
+
+    def grads(m, device):
+        api = build_model(cfg, device)
+        loss, _ = api.loss(m, {"tokens": torch.from_numpy(tokens).to(
+            device)})
+        names, params = zip(*m.named_parameters())
+        return loss.detach(), dict(zip(names, torch.autograd.grad(loss,
+                                                                  params)))
+
+    (loss, g), launches, wall = counted_run(train_counters(),
+                                            lambda: grads(model, dev))
+    want = 2 * cfg.n_layers, cfg.n_layers      # forward + remat, backward
+    if (launches["flash_attention"], launches["flash_attention_bwd"]) \
+            != want:
+        raise AssertionError(f"train_vs_cpu: launches {launches}, want "
+                             f"{want}")
+    t0 = time.perf_counter()
+    loss_c, g_c = grads(cpu_model, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    errs = {n: float((g[n].cpu().double() - g_c[n].double()).norm()
+                     / g_c[n].double().norm().clamp(min=1e-30))
+            for n in g_c}
+    worst = max(errs, key=errs.get)
+    log(f"train_vs_cpu: loss {float(loss)} (CPU {float(loss_c)}, rel err "
+        f"{loss_err}); largest relative-norm gradient error {errs[worst]} "
+        f"({worst}); card {wall:.3f} s, CPU {cpu_s:.3f} s; launches "
+        f"{launches}")
+    if not loss_err <= TRAIN_VS_CPU_LOSS or not max(errs.values()) \
+            <= TRAIN_VS_CPU_GRAD:
+        over = {n: e for n, e in errs.items() if e > TRAIN_VS_CPU_GRAD}
+        raise AssertionError(f"train_vs_cpu: loss err {loss_err}, gradient "
+                             f"errors over {TRAIN_VS_CPU_GRAD}: {over}")
+    del model, cpu_model, g, g_c
+    return dict(loss=float(loss), loss_cpu=float(loss_c),
+                loss_rel_err=loss_err,
+                grad_rel_norm_errs=errs, max_grad_rel_norm_err=errs[worst],
+                card_s=wall, cpu_s=cpu_s, launches=launches,
+                shape="gemma3-1b full width, 6 layers (5 window, 1 global), "
+                      "B 1, S 576, f32")
+
+
+def train_phase(dev, seed, profile=False):
+    """``train:gemma3-1b``: gemma3-1b at full width and depth (26 layers,
+    f32, remat "full") through ``launch/train``'s ``run``: a Loader over a
+    1M-token synthetic corpus, B 4, S 1024, 8 AdamW steps through
+    ``run_training`` with one failure injected before step 4 and no
+    checkpoint directory (a fresh restart: 12 steps run).  Checks finite
+    losses, grad_norm > 0, changed parameters, one restart and the flash
+    launches (2 x 26 forwards and 26 backwards a step run)."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build_model, model_flops_per_token
+    from repro_torch.training.fault_tolerance import FailureInjector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S = 4, 1024
+    work = ROOT / "build" / "chip_train"
+    shutil.rmtree(work, ignore_errors=True)     # the corpus is made anew
+    args = launch_train.parser().parse_args([
+        "--arch", "gemma3-1b", "--seq", str(S), "--batch", str(B),
+        "--steps", str(TRAIN_STEPS), "--workdir", str(work)])
+    cfg = get_config(args.arch).replace(dtype="float32")
+    step_times = []     # the host clock once a step's metrics are read back
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted_run(
+        train_counters(), lambda: launch_train.run(
+            args, ckpt_dir=None,
+            failure_injector=FailureInjector(fail_at=(TRAIN_FAIL_AT,)),
+            on_metrics=lambda s, m: step_times.append(time.perf_counter())))
+    peak = torch.cuda.max_memory_allocated()
+    hist = res.metrics_history
+    steps_run = TRAIN_FAIL_AT + TRAIN_STEPS
+    if res.restarts != 1 or res.step != TRAIN_STEPS \
+            or len(hist) != steps_run:
+        raise AssertionError(f"train: restarts {res.restarts}, step "
+                             f"{res.step}, {len(hist)} steps run")
+    if not all(math.isfinite(m["loss"]) and m["grad_norm"] > 0
+               for m in hist):
+        raise AssertionError(f"train: losses or grad norms {hist}")
+    want = {"flash_attention": 2 * cfg.n_layers * steps_run,
+            "flash_attention_bwd": cfg.n_layers * steps_run}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want}")
+    model = res.state["params"]
+    api = build_model(cfg, dev)
+    fresh = api.init(0, S)
+    changed = sum(not torch.equal(p, q) for p, q in zip(
+        model.parameters(), fresh.parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    if changed != len(list(model.parameters())):
+        raise AssertionError(f"train: {changed} parameters changed")
+    del fresh
+    t = step_times[-TRAIN_STEPS:]
+    step_s = statistics.median(b - a for a, b in zip(t, t[1:]))
+    n_act, attn = model_flops_per_token(cfg, S)
+    flops_tok = 6 * n_act + 3 * attn
+    mfu = flops_tok * B * S / step_s
+    r = dict(arch=cfg.name, params=n_params, B=B, S=S, steps=TRAIN_STEPS,
+             steps_run=steps_run, restarts=res.restarts, wall_s=wall,
+             losses=[m["loss"] for m in hist],
+             grad_norms=[m["grad_norm"] for m in hist],
+             ms_per_step=step_s * 1e3, tokens_per_s=B * S / step_s,
+             peak_bytes=peak, model_flops_per_token=flops_tok,
+             model_flops_per_s=mfu, share_of_f32_peak=mfu / PEAK_F32_FLOPS,
+             launches=launches, parameters_changed=changed)
+    if profile:
+        r["profile"] = train_profile(args, cfg, api, res.state)
+    log(f"train:{cfg.name}: {n_params} parameters, {steps_run} steps run "
+        f"(restart at {TRAIN_FAIL_AT}), losses {r['losses']}; "
+        f"{r['ms_per_step']:.3f} ms a step (median of steps 2-8), "
+        f"{r['tokens_per_s']:.1f} tokens/s, peak {peak} bytes, model "
+        f"{mfu:.4e} FLOP/s ({r['share_of_f32_peak']:.4f} of 67 TFLOP/s f32); "
+        f"launches {launches}; on {nvidia_smi()}")
+    del res, model, api
+    return r
+
+
+def train_profile(args, cfg, api, state) -> dict:
+    """One more train step under torch.profiler (the launcher's step and
+    batch, made as ``launch/train`` makes them): device time by kernel,
+    and the flash backward kernels' share of the step's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprof
+    from repro_torch.data import DataConfig, Loader, TokenStore
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+
+    step = make_train_step(cfg, api, adamw=opt.AdamWConfig(
+        lr=args.lr, warmup=10, total_steps=args.steps))
+    corpus = pathlib.Path(args.workdir) / "corpus.bin"
+    loader = Loader(TokenStore.open(corpus),
+                    DataConfig(seq_len=args.seq, global_batch=args.batch))
+    batch = {"tokens": torch.from_numpy(
+        loader.batch_for_step(0)["tokens"]).to(api.device)}
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_res = profile_table("train_gemma3", prof, wall)
+    kernels = {e.key: getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU}
+    total = max(sum(kernels.values()), 1e-9)
+    shares = {part: sum(v for k, v in kernels.items() if key in k) / total
+              for part, key in (("flash_bwd", "fa_bwd"),
+                                ("flash_fwd", "flash_fwd"))}
+    log(f"train profile: flash backward {shares['flash_bwd']:.6f} and "
+        f"forward {shares['flash_fwd']:.6f} of the step's device time")
+    return dict(prof_res, **{f"{k}_share": v for k, v in shares.items()})
+
+
+def train_ckpt_phase(dev, seed):
+    """``train_ckpt``: the restart drill on the card at gemma3-1b's smoke
+    config (head dim 16, as the kernels take a multiple of 8), f32: 8
+    steps saving every 2 with a failure injected before step 5 restore
+    step 4 from ``LATEST`` and replay; the final parameters and moments
+    must be bit-identical to an uninterrupted run's."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, Loader, TokenStore, synth_corpus
+    from repro_torch.models.model import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.fault_tolerance import (FailureInjector,
+                                                      run_training)
+    from repro_torch.training.train_loop import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config("gemma3-1b").replace(head_dim=16, dtype="float32")
+    api = build_model(cfg, dev)
+    acfg = opt.AdamWConfig(lr=1e-2, warmup=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, api, adamw=acfg)
+    work = ROOT / "build" / "chip_train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    loader = Loader(TokenStore.open(synth_corpus(
+        work / "corpus.bin", n_tokens=20_000, vocab=cfg.vocab, seed=seed)),
+        DataConfig(seq_len=32, global_batch=4))
+
+    def init():
+        model = api.init(seed, 32)
+        return {"params": model, "opt": opt.adamw_init(model, acfg)}
+
+    def batch_for_step(s):
+        return {"tokens": torch.from_numpy(
+            loader.batch_for_step(s)["tokens"]).to(dev)}
+
+    plain, launches, _ = counted_run(train_counters(), lambda: run_training(
+        step, init, batch_for_step, TRAIN_STEPS))
+    require_launched("train_ckpt", launches)
+    drill = run_training(step, init, batch_for_step, TRAIN_STEPS,
+                         ckpt_dir=work / "ckpt", ckpt_every=2,
+                         failure_injector=FailureInjector(fail_at=(5,)))
+    if drill.restarts != 1 or len(drill.metrics_history) != TRAIN_STEPS + 1:
+        raise AssertionError(f"train_ckpt: {drill.restarts} restarts, "
+                             f"{len(drill.metrics_history)} steps run")
+    pa, pb = plain.state, drill.state
+    same = all(torch.equal(a, b) for a, b in zip(
+        pa["params"].parameters(), pb["params"].parameters()))
+    same &= all(torch.equal(pa["opt"][k][n], pb["opt"][k][n])
+                for k in ("mu", "nu") for n in pa["opt"][k])
+    same &= int(pa["opt"]["step"]) == int(pb["opt"]["step"])
+    if not same:
+        raise AssertionError("train_ckpt: the restored run differs from the "
+                             "uninterrupted one")
+    log(f"train_ckpt: restored from step 4 after a failure at step 5, final "
+        f"parameters and moments bit-identical to the uninterrupted run; "
+        f"launches {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(restarts=drill.restarts, bit_identical=True,
+                losses=[m["loss"] for m in plain.metrics_history],
+                launches=launches)
+
+
+def train_phases(dev, seed, profile=False) -> dict:
+    """The training slice: train_vs_cpu, train:gemma3-1b and train_ckpt,
+    each freed before the next."""
+    import torch
+
+    out = {}
+    for name, fn in (("train_vs_cpu", lambda: train_vs_cpu_phase(dev, seed)),
+                     ("train:gemma3-1b", lambda: train_phase(dev, seed,
+                                                             profile)),
+                     ("train_ckpt", lambda: train_ckpt_phase(dev, seed))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
     "probe_allocate": "src/repro/kernels/probe_allocate.py:167",
     "cache_probe": "src/repro/kernels/cache_probe.py:75",
     "gather_blocks": "src/repro/kernels/gather_blocks.py:39",
     "paged_attention": "src/repro/kernels/paged_attention.py:77",
     "flash_attention": "src/repro/kernels/flash_attention.py:127",
+    "flash_attention_bwd": "src/repro/kernels/ref.py:110",
 }
 
 
@@ -2544,10 +3123,11 @@ def kernel_entry(name, r, launches):
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r.get("bound_by", "bytes"),
              "library_ms": r.get("library_ms")}
-    for key in ("device_ms", "host_us", "floor_ms", "variant"):
+    for key in ("device_ms", "host_us", "floor_ms", "variant",
+                "ms_spread", "library_ms_spread", "design_bound_ms"):
         if key in r:        # device time, host time a call, fixed cost;
-            entry[key] = r[key]    # flash: the kernel that was timed
-    return entry
+            entry[key] = r[key]    # flash: the kernel that was timed; the
+    return entry                   # backward: spreads, its design's bound
 
 
 def main() -> int:
@@ -2558,9 +3138,10 @@ def main() -> int:
                     help="trace one more BFS and two CC rounds, 64 "
                          "wavefronts of two taxi scans, 8 rounds of the "
                          "partitioned runtime, a window of steps of "
-                         "each serving phase, and one more forward of "
+                         "each serving phase, one more forward of "
                          "hymba's and xLSTM's decode-vs-forward phases, "
-                         "with torch.profiler")
+                         "and one more gemma3-1b train step, with "
+                         "torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -2597,6 +3178,7 @@ def main() -> int:
 
     kres = kernel_phase(dev, args.seed)
     kres.update(attention_kernel_phase(dev, args.seed))
+    kres.update(attention_bwd_phase(dev, args.seed))
     for k, v in kres.items():
         lib = v.get("library_ms")
         log(f"kernel {k}: {v['ms']:.6f} ms (plain {v['plain_ms']:.6f} ms, "
@@ -2634,6 +3216,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     models = model_phases(dev, args.seed, attn, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = train_phases(dev, args.seed, profile=args.profile)
 
     launches = dict(sres["launches"])
     # the attention kernels' launches on each model path (every path
@@ -2652,6 +3237,10 @@ def main() -> int:
     path_launches["flash_attention"].update(
         {k + ":patches": r["patch_forward_launches"]["flash_attention"]
          for k, r in models.items() if "patch_forward_launches" in r})
+    # the training paths: forward (and remat's recompute) and backward
+    for name in ("flash_attention", "flash_attention_bwd"):
+        path_launches.setdefault(name, {}).update(
+            {k: r["launches"][name] for k, r in training.items()})
     for name, per_path in path_launches.items():
         require_launched(name, per_path)
         launches[name] = sum(per_path.values())
@@ -2678,7 +3267,8 @@ def main() -> int:
         build_s=t_build, build_log=build.build_log, hgmma=hgmma,
         kernels=kres,
         slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
-        runtime=runtime, **models, total_s=total_s), indent=1))
+        runtime=runtime, **models, training=training, total_s=total_s),
+        indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

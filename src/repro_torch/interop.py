@@ -4,7 +4,9 @@ A ``BamState`` travels as a flat dict of arrays, keyed ``"cache.<field>"``,
 ``"queues.<field>"`` and ``"metrics.<field>"``; a model's parameters
 travel as the reference's nested dict, blocks stacked on a leading layer
 axis, or for xLSTM a tuple of per-layer trees (:func:`params_from_numpy`,
-:func:`params_to_numpy`).
+:func:`params_to_numpy`); gradients and the AdamW state in the same layout
+(:func:`named_to_numpy`, :func:`named_from_numpy`,
+:func:`opt_state_to_numpy`, :func:`opt_state_from_numpy`).
 
 :func:`state_from_numpy` builds the port's ``BamState`` on a device from
 such a dict (for example one made from the JAX package's state, which has
@@ -30,7 +32,7 @@ from repro_torch.core.cache import CacheState
 from repro_torch.core.metrics import IOMetrics
 from repro_torch.core.queues import QueueState
 from repro_torch.core.storage import HBMStorage
-from repro_torch.models import hymba, xlstm
+from repro_torch.models import hymba, transformer, xlstm
 from repro_torch.models.model import family_module
 from repro_torch.utils import resolve_device
 
@@ -296,6 +298,14 @@ def params_from_numpy(cfg, tree: dict, device=None,
     max_seq = np.shape(tree["pos"])[0] if "pos" in tree else 0
     model = cls(cfg, max_seq=max_seq, dtype=dtype,
                 device=resolve_device(device))
+    return load_params_(model, tree)
+
+
+@torch.no_grad()
+def load_params_(model: nn.Module, tree: dict) -> nn.Module:
+    """Copy the reference's parameter tree (numpy arrays, the layout of
+    :func:`params_to_numpy`) into ``model``'s parameters in place, each
+    cast to its parameter's dtype; raises on a shape that differs."""
     for path, param in _tree_pairs(model):
         a = _leaf(tree, path)
         if tuple(a.shape) != tuple(param.shape):
@@ -309,11 +319,17 @@ def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's nested
     tree of float32 numpy arrays, each stacked group's layers stacked on
     axis 0 (xLSTM's blocks a tuple of per-layer trees)."""
+    return _numpy_tree(model, [param for _, param in _tree_pairs(model)])
+
+
+def _numpy_tree(model: nn.Module, tensors) -> dict:
+    """The reference's tree of float32 numpy arrays of ``tensors``, one a
+    parameter of ``model`` in ``_tree_pairs`` order."""
     per_layer = isinstance(model, xlstm.XLSTMLM)
     tree: dict = {}
     stacked: dict = {}
-    for path, param in _tree_pairs(model):
-        a = param.detach().float().cpu().numpy()
+    for (path, _), t in zip(_tree_pairs(model), tensors):
+        a = t.detach().float().cpu().numpy()
         if path[0] in STACKED and not per_layer:
             stacked.setdefault((path[0],) + path[2:], []).append(a)
         else:
@@ -324,3 +340,74 @@ def params_to_numpy(model: nn.Module) -> dict:
         tree["blocks"] = tuple(tree["blocks"][i]
                                for i in range(len(tree["blocks"])))
     return tree
+
+
+# ------------------------------------------------------ optimizer state ----
+def reference_paths(model: nn.Module) -> dict:
+    """The port's parameter names (``named_parameters``) -> their paths in
+    the reference's parameter tree (the layer index second in a group of
+    ``STACKED``)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(param)]: path for path, param in _tree_pairs(model)}
+
+
+def reference_ndim(model: nn.Module) -> dict:
+    """The port's parameter names -> the rank of the reference's leaf that
+    holds them: one more than the parameter's own in a stacked group
+    (transformer and hymba blocks stacked on a leading layer axis), the
+    same for xLSTM's per-layer blocks and every other leaf.  A module
+    outside the model families is its own layout."""
+    params = dict(model.named_parameters())
+    if not isinstance(model, (transformer.TransformerLM, hymba.HymbaLM,
+                              xlstm.XLSTMLM)):
+        return {name: p.ndim for name, p in params.items()}
+    per_layer = isinstance(model, xlstm.XLSTMLM)
+    return {name: params[name].ndim
+            + int(path[0] in STACKED and not per_layer)
+            for name, path in reference_paths(model).items()}
+
+
+def named_to_numpy(model: nn.Module, tensors: dict) -> dict:
+    """Tensors keyed by ``model``'s parameter names (gradients, optimizer
+    moments) as the reference's tree of float32 numpy arrays, laid out as
+    :func:`params_to_numpy` lays out the parameters."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return _numpy_tree(model, [tensors[names[id(param)]]
+                               for _, param in _tree_pairs(model)])
+
+
+def named_from_numpy(model: nn.Module, tree: dict, device=None,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """The inverse of :func:`named_to_numpy`: tensors of ``dtype`` on
+    ``device`` (CUDA unless the caller asks for another) keyed by
+    ``model``'s parameter names, from the reference's tree layout."""
+    device = resolve_device(device)
+    out = {}
+    for name, path in reference_paths(model).items():
+        a = _leaf(tree, path)
+        out[name] = _to_torch(a.astype(np.float32), device).to(dtype)
+    return out
+
+
+def opt_state_to_numpy(model: nn.Module, ostate: dict) -> dict:
+    """The port's AdamW state (``repro_torch.training.optimizer``) as the
+    reference's: ``step`` an int32 scalar, ``mu``, ``nu`` and (with pod
+    compression) ``ef`` trees in the reference's parameter layout."""
+    out = {"step": np.asarray(int(ostate["step"]), np.int32)}
+    for key in ("mu", "nu", "ef"):
+        if key in ostate:
+            out[key] = named_to_numpy(model, ostate[key])
+    return out
+
+
+def opt_state_from_numpy(model: nn.Module, d: dict, device=None) -> dict:
+    """The inverse of :func:`opt_state_to_numpy`, on ``device`` (CUDA
+    unless the caller asks for another): f32 moments keyed by ``model``'s
+    parameter names and an int32 ``step``."""
+    device = resolve_device(device)
+    out = {"step": torch.tensor(int(np.asarray(d["step"])),
+                                dtype=torch.int32, device=device)}
+    for key in ("mu", "nu", "ef"):
+        if key in d:
+            out[key] = named_from_numpy(model, d[key], device)
+    return out

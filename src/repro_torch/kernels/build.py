@@ -43,9 +43,11 @@ SIGNATURES = {
     "paged_attention_workspace_floats": [_I] * 5,
     "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I] + [_P] * 3,
     "flash_attention_launch": (
-        [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P]),
+        [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P, _P]),
     "flash_attention_tc_launch": (
-        [_P] * 3 + [_I] * 8 + [_L, _F, _P, _P]),
+        [_P] * 3 + [_I] * 8 + [_L, _F, _P, _P, _P]),
+    "flash_attention_bwd_launch": (
+        [_P] * 6 + [_I] * 8 + [_L, _F, _I] + [_P] * 5),
 }
 # entry points that return something other than a CUDA status (int)
 RESTYPES = {"paged_attention_workspace_floats": _L,

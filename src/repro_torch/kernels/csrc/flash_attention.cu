@@ -35,6 +35,11 @@
 //   lanes of a row with shuffles.  f32 stays on this kernel: TF32 tensor
 //   cores keep 10 mantissa bits, too few for the f32 tolerance of 3e-5.
 //
+// With a non-null ``lse`` pointer both also write each row's log-sum-exp of
+// the scaled scores, m + log(max(l, 1e-30)) in natural log, f32 (B, Hq,
+// Sq), which the backward (flash_attention_bwd.cu) reads; a row with no live
+// key writes -1e30, as the plain version.  A null pointer writes nothing.
+//
 // Both mask kv_pos < Skv (the ragged edge, without padding copies), kv_pos
 // <= q_pos (causal) and kv_pos > q_pos - window (64-bit, so a window near
 // 2^31 cannot overflow), and skip kv tiles that no row of the q tile can
@@ -59,7 +64,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(
     const T* __restrict__ k,         // (B, Hkv, Skv, D)
     const T* __restrict__ v,         // (B, Hkv, Skv, D)
     int Hq, int Hkv, int Sq, int Skv, int D, int causal, int has_window,
-    long long window, float scale, T* __restrict__ out) {
+    long long window, float scale, T* __restrict__ out,
+    float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* q_s = smem;                  // BQ x (D + 1)
@@ -196,6 +202,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(
         const int d = tx + 16 * kk;
         if (d < D) ob[(int64_t)qp * D + d] = from_f32<T>(acc[i][kk] / denom);
       }
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)b * Hq + h) * Sq + qp] = m[i] + logf(denom);
     }
   }
 }
@@ -203,7 +211,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(
 template <typename T, int NDT>
 int launch(const void* q, const void* k, const void* v, int B, int Hq,
            int Hkv, int Sq, int Skv, int D, int causal, int has_window,
-           long long window, float scale, void* out, cudaStream_t st) {
+           long long window, float scale, void* out, float* lse,
+           cudaStream_t st) {
   const size_t smem = sizeof(float) *
       ((size_t)FA_BQ * (D + 1) + (size_t)FA_BKV * (D + 1) +
        (size_t)FA_BKV * D + (size_t)FA_BQ * FA_PLD);
@@ -215,29 +224,30 @@ int launch(const void* q, const void* k, const void* v, int B, int Hq,
   flash_fwd_kernel<T, NDT><<<grid, FA_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), Hq, Hkv, Sq, Skv, D, causal, has_window,
-      window, scale, static_cast<T*>(out));
+      window, scale, static_cast<T*>(out), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, int B, int Hq,
              int Hkv, int Sq, int Skv, int D, int causal, int has_window,
-             long long window, float scale, void* out, cudaStream_t st) {
+             long long window, float scale, void* out, float* lse,
+             cudaStream_t st) {
   const int ndt = (D + 15) / 16;
   if (ndt <= 1)
     return launch<T, 1>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
-                        window, scale, out, st);
+                        window, scale, out, lse, st);
   if (ndt <= 2)
     return launch<T, 2>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
-                        window, scale, out, st);
+                        window, scale, out, lse, st);
   if (ndt <= 4)
     return launch<T, 4>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
-                        window, scale, out, st);
+                        window, scale, out, lse, st);
   if (ndt <= 8)
     return launch<T, 8>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
-                        window, scale, out, st);
+                        window, scale, out, lse, st);
   return launch<T, 16>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal, has_window,
-                       window, scale, out, st);
+                       window, scale, out, lse, st);
 }
 
 }  // namespace
@@ -250,16 +260,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Sq, int Skv, int D, int causal,
                                       int has_window, long long window,
                                       float scale, int is_bf16, void* out,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   if (D % 8 != 0 || D > 256 || D < 8 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   return is_bf16
              ? launch_d<__nv_bfloat16>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal,
-                                       has_window, window, scale, out, st)
+                                       has_window, window, scale, out, lse_f,
+                                       st)
              : launch_d<float>(q, k, v, B, Hq, Hkv, Sq, Skv, D, causal,
-                               has_window, window, scale, out, st);
+                               has_window, window, scale, out, lse_f, st);
 }
 
 // ======================================================= tensor-core (bf16) ==
@@ -292,7 +304,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tm_k,    // (B*Hkv, Skv, D) bf16
     const __grid_constant__ CUtensorMap tm_v,
     int Hq, int Hkv, int Sq, int Skv, int causal, int has_window,
-    long long window, float scale_log2, __nv_bfloat16* __restrict__ out) {
+    long long window, float scale_log2, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse) {
   using Tl = TcTile<D>;
   constexpr int BKV = Tl::BKV, NCH = Tl::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -480,6 +493,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_tc_kernel(
         *reinterpret_cast<uint32_t*>(ob + (int64_t)row * D + col) =
             pack_bf16(o[i] / denom, o[i + 1] / denom);
       }
+      // m_r is log2-domain; a row that saw no live key keeps m = -inf
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((int64_t)b * Hq + h) * Sq + row] =
+            m_r[r] == -INFINITY
+                ? ATTN_NEG_INF
+                : (m_r[r] + log2f(denom)) * 0.6931471805599453f;
     }
   }
 }
@@ -528,7 +547,8 @@ bool make_map(CUtensorMap* m, const void* ptr, int BH, int S, int D,
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, int B, int Hq,
               int Hkv, int Sq, int Skv, int causal, int has_window,
-              long long window, float scale, void* out, cudaStream_t st) {
+              long long window, float scale, void* out, float* lse,
+              cudaStream_t st) {
   using Tl = TcTile<D>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B * Hq, Sq, D, TC_BQ) ||
@@ -542,7 +562,7 @@ int launch_tc(const void* q, const void* k, const void* v, int B, int Hq,
   const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, Hq, B);
   flash_fwd_tc_kernel<D><<<grid, TC_THREADS, Tl::SMEM, st>>>(
       tq, tk, tv, Hq, Hkv, Sq, Skv, causal, has_window, window,
-      scale * 1.4426950408889634f, static_cast<__nv_bfloat16*>(out));
+      scale * 1.4426950408889634f, static_cast<__nv_bfloat16*>(out), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -555,21 +575,22 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          int Hkv, int Sq, int Skv, int D,
                                          int causal, int has_window,
                                          long long window, float scale,
-                                         void* out, void* stream) {
+                                         void* out, void* lse, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (D) {
     case 64:
       return launch_tc<64>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
-                           window, scale, out, st);
+                           window, scale, out, lse_f, st);
     case 128:
       return launch_tc<128>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
-                            window, scale, out, st);
+                            window, scale, out, lse_f, st);
     case 256:
       return launch_tc<256>(q, k, v, B, Hq, Hkv, Sq, Skv, causal, has_window,
-                            window, scale, out, st);
+                            window, scale, out, lse_f, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.cache_probe import cache_probe_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.gather_blocks import gather_blocks_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.probe_allocate import probe_allocate_cuda
@@ -52,9 +53,43 @@ def probe_allocate(tags, owner, refcount, dirty, speculative, clock_hand,
               protect_hits=protect_hits)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward keeps q, k, v, O and
+    the rows' log-sum-exp; the backward is the CUDA backward kernel for
+    CUDA tensors and its plain version for CPU tensors (the reference's
+    ``custom_vjp`` of ``flash_attention_xla``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _on(q) == "cpu":
+            out, lse = _ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                                    window=window)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = (_ref.flash_attention_bwd_ref if _on(q) == "cpu"
+              else flash_attention_bwd_cuda)
+        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(),
+                        causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
     """Causal / windowed GQA attention over full sequences: q (B, Hq, Sq, D),
-    k and v (B, Hkv, Skv, D); ``window`` a Python int or None."""
+    k and v (B, Hkv, Skv, D); ``window`` a Python int or None.  When grad
+    is on and an input requires it, the call goes through the autograd
+    function above (forward with the log-sum-exp, backward kernel);
+    otherwise it is the plain forward call, with nothing saved."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
     fn = _ref.flash_attention_ref if _on(q) == "cpu" else flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window)
 

@@ -4,8 +4,11 @@ Ports of ``repro.kernels.ref``: ``cache_probe_ref``, ``probe_allocate_ref``,
 ``gather_blocks_ref``, ``paged_attention_ref`` and ``flash_attention_ref``
 are the plain versions of the five CUDA kernels (the CPU path, and the
 yardstick the kernels are held against on the card);
-``sq_enqueue_ref`` and ``wfq_drain_ref`` (with its fault accounting) were
-never Pallas kernels and stay plain torch on every device.
+``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` are the
+plain versions of the flash forward with its log-sum-exp and of the flash
+backward kernel; ``sq_enqueue_ref`` and ``wfq_drain_ref`` (with its fault
+accounting) were never Pallas kernels and stay plain torch on every
+device.
 """
 from __future__ import annotations
 
@@ -19,19 +22,15 @@ from repro_torch.utils import mix_hash, segment_rank
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  Plain masked softmax in
-    float32 with scale 1/sqrt(D); query head h reads kv head h // (Hq //
-    Hkv); a row with no live key is zero.  Output in q's dtype."""
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    group = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    kr = k.repeat_interleave(group, dim=1).float()
-    vr = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                  window: int | None):
+    """The scaled f32 scores (B, Hq, Sq, Skv), masked to NEG_INF, and the
+    (Sq, Skv) mask: key position <= query position (causal) and > query
+    position - window (with a window)."""
+    Sq, D = q.shape[2], q.shape[3]
+    Skv = k.shape[2]
+    kr = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * (1.0 / math.sqrt(D))
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -39,11 +38,72 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kv_pos <= q_pos
     if window is not None:
         mask &= kv_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _flash_out(s, mask, v, group, dtype):
+    vr = v.repeat_interleave(group, dim=1).float()
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
-    out = torch.where(mask.any(dim=-1)[:, None], out, 0.0)
-    return out.to(q.dtype)
+    return torch.where(mask.any(dim=-1)[:, None], out, 0.0).to(dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  Plain masked softmax in
+    float32 with scale 1/sqrt(D); query head h reads kv head h // (Hq //
+    Hkv); a row with no live key is zero.  Output in q's dtype."""
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    return _flash_out(s, mask, v, q.shape[1] // k.shape[1], q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None):
+    """:func:`flash_attention_ref`'s output and the per-row log-sum-exp of
+    the scaled scores, ``lse = m + log(max(l, 1e-30))`` (m the row's
+    largest masked score, l the sum of exp(s - m) over its live keys), f32
+    (B, Hq, Sq), as the reference's ``_fa_vjp_fwd`` saves it.  A row with
+    no live key has m = NEG_INF, so lse = NEG_INF in f32."""
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    m = s.amax(dim=-1)
+    l = torch.where(mask, torch.exp(s - m[..., None]), 0.0).sum(-1)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return _flash_out(s, mask, v, q.shape[1] // k.shape[1], q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int | None = None):
+    """The flash backward of the reference's ``_fa_vjp_bwd``
+    (``repro.kernels.ref``) without its blocks: P = exp(S scale - lse)
+    under the mask, dV = P^T dO, dP = dO V^T, Delta = rowsum(dO * O),
+    dS = P * (dP - Delta) * scale, dQ = dS K, dK = dS^T Q, all in f32,
+    each GQA group summed into its kv head.  A row with no live key has
+    P = 0 and contributes nothing.  Returns (dq, dk, dv) in the inputs'
+    dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    do = dout.float()
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vr)
+    delta = (do * out.float()).sum(-1)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+
+    def per_kv_head(g):
+        return g.reshape(B, Hkv, group, Skv, D).sum(2)
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

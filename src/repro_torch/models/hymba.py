@@ -5,7 +5,8 @@ and a selective-SSM (Mamba) path on the same normed input; their
 normalised outputs are averaged, then an MLP follows.  Layers {0, L//2,
 L-1} attend globally.  ``n_meta_tokens`` learnable meta tokens are
 prepended to every sequence: ``forward`` puts them before the tokens and
-drops their positions from the logits, and :func:`prime_cache` runs them
+drops their positions from the logits (``loss_fn`` the same from the
+loss), and :func:`prime_cache` runs them
 through a decode cache before any prompt token.
 
 Attention goes through the port's flash kernel (``forward``, windowed on
@@ -24,6 +25,7 @@ tensors each step.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -227,11 +229,13 @@ class HymbaLM(nn.Module):
         self.meta.normal_(0.0, 0.02, generator=gen)
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, model: HymbaLM, batch: dict):
-    """Full-sequence forward -> (logits (B, S, V), {}): the meta tokens at
-    positions 0..M-1, the tokens after them; a window of S + M or more
-    runs its layer as global."""
+def forward(cfg: ArchConfig, model: HymbaLM, batch: dict, *,
+            return_hidden: bool = False):
+    """Full-sequence forward -> (logits (B, S, V), {}), or with
+    ``return_hidden`` the final-normed hidden states (B, S, D): the meta
+    tokens at positions 0..M-1, the tokens after them; a window of S + M
+    or more runs its layer as global; each block under
+    :func:`repro_torch.models.layers.remat`."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     M = cfg.n_meta_tokens
@@ -240,10 +244,23 @@ def forward(cfg: ArchConfig, model: HymbaLM, batch: dict):
     x = torch.cat([meta, x], 1)
     positions = torch.arange(S + M, device=x.device)
     for bp, w in zip(model.blocks, layer_windows(cfg)):
-        x = block_apply(cfg, bp, x, window=w if w < S + M else None,
-                        positions=positions)
+        x = L.remat(cfg, functools.partial(
+            block_apply, cfg, bp, window=w if w < S + M else None,
+            positions=positions), x)
     x = L.norm_apply(cfg, model.ln_f, x)[:, M:]
+    if return_hidden:
+        return x, {}
     return L.logits_head(cfg, model.head, model.embed, x), {}
+
+
+def loss_fn(cfg: ArchConfig, model: HymbaLM, batch: dict):
+    """Chunked next-token cross entropy over the token positions (the meta
+    tokens carry no loss) -> (loss, {"nll": loss})."""
+    hidden, _ = forward(cfg, model, batch, return_hidden=True)
+    labels, mask = L.shifted_labels(batch["tokens"])
+    loss = L.lm_loss_from_hidden(cfg, model.head, model.embed, hidden,
+                                 labels, mask)
+    return loss, {"nll": loss}
 
 
 # ---------------------------------------------------------------- decode ---

@@ -3,7 +3,8 @@ embedding, learned positions and the logits head.
 
 Port of ``repro.models.layers`` (``dense``, ``norm_apply``,
 ``rms_norm_simple``, ``rope``, ``attention_qkv``, ``attention``, ``mlp``,
-``moe_ffn``, ``embed``, ``logits_head``).  Parameters live in
+``moe_ffn``, ``embed``, ``logits_head``, ``cross_entropy`` and the chunked
+``lm_loss_from_hidden``).  Parameters live in
 ``nn.Module``s that keep the reference's layouts, so a weight carries
 across untransposed: a dense weight is ``(in, out)`` and applies as
 ``x @ w``.
@@ -23,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -324,3 +326,70 @@ def logits_head(cfg: ArchConfig, head: Dense | None, embed_p: Embedding,
     if cfg.logit_softcap:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
     return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token NLL in f32; logits (B, S, V), labels (B, S) int,
+    mask (B, S) (the mean over the masked positions, at least one)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(
+        lf, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``cfg.remat`` is not ``"none"`` and grad is on (the reference's
+    ``jax.checkpoint`` of each layer).  ``"dots_saveable"`` recomputes
+    everything too: the reference keeps the products' outputs under it,
+    which changes memory and time but not a value."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def shifted_labels(tokens: torch.Tensor):
+    """Next-token labels (the last column 0) and their mask (the last
+    column 0), as the reference's loss functions build them."""
+    B, S = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], 1)
+    mask = torch.cat([torch.ones((B, S - 1), device=tokens.device),
+                      torch.zeros((B, 1), device=tokens.device)], 1)
+    return labels, mask
+
+
+def lm_loss_from_hidden(cfg: ArchConfig, head: Dense | None,
+                        embed_p: Embedding, x: torch.Tensor,
+                        labels: torch.Tensor, mask: torch.Tensor, *,
+                        chunk: int = 512) -> torch.Tensor:
+    """Chunked LM cross-entropy that never holds the (B, S, V) logits: the
+    positions are padded to a whole number of chunks of ``min(chunk, S)``
+    and each chunk's (B, chunk, V) logits are recomputed in the backward
+    (``checkpoint``, as the reference's ``jax.checkpoint`` of its scan
+    body), so only one chunk's logits exist at a time.  Returns the masked
+    mean NLL in f32."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    mask = mask.float()
+
+    def body(xch, lch, mch):
+        logits = logits_head(cfg, head, embed_p, xch).float()
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, lch.long()[..., None])[..., 0]
+        return (nll * mch).sum()
+
+    tot = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, x.shape[1], c):
+        xs = (x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+        tot = tot + (checkpoint(body, *xs, use_reentrant=False)
+                     if torch.is_grad_enabled() else body(*xs))
+    return tot / mask.sum().clamp(min=1.0)

@@ -5,7 +5,8 @@ Port of ``repro.models.transformer`` for the dense, MoE, VLM and audio
 families: ``forward`` (full sequence through the flash-attention kernel;
 VLM patch embeddings prepended, learned positions added, whisper's
 cross-attention over ``encode``'s output, MoE aux losses summed over
-layers), ``encode``, ``init_decode_cache`` (a ring for every layer whose
+layers), ``encode``, ``loss_fn`` (chunked next-token cross entropy with the MoE
+aux terms), ``init_decode_cache`` (a ring for every layer whose
 window is under ``max_seq``, a BaM-paged pool for every other, and the
 enc-dec cross-attention KV ``xkv``), ``_decode_attn_ring``,
 ``_decode_attn_paged`` (through the paged-attention kernel),
@@ -24,6 +25,7 @@ for ``distributed/`` (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -134,29 +136,36 @@ def _cross_attention(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
     return L.dense(p.wo, o, dtype)
 
 
+def _block(cfg: ArchConfig, bp: Block, x, *, window, positions, causal,
+           enc_out):
+    """One block: (x', aux)."""
+    x = x + L.attention(cfg, bp.attn, L.norm_apply(cfg, bp.ln1, x),
+                        window=window, positions=positions, causal=causal)
+    if enc_out is not None:
+        x = x + _cross_attention(cfg, bp.xattn,
+                                 L.norm_apply(cfg, bp.ln_x, x), enc_out)
+    y, aux = _ffn(cfg, bp, L.norm_apply(cfg, bp.ln2, x))
+    return x + y, aux
+
+
 def _run_blocks(cfg: ArchConfig, blocks, x, windows, *, causal=True,
                 enc_out=None):
-    """The blocks in order (the reference's ``_scan_blocks``); MoE aux
-    losses summed over layers."""
+    """The blocks in order (the reference's ``_scan_blocks``), each under
+    :func:`layers.remat`; MoE aux losses summed over layers."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     aux = {}
     for bp, w in zip(blocks, windows):
         # a window of S or more masks nothing: run the layer as global
-        x = x + L.attention(cfg, bp.attn, L.norm_apply(cfg, bp.ln1, x),
-                            window=w if w < S else None,
-                            positions=positions, causal=causal)
-        if enc_out is not None:
-            x = x + _cross_attention(cfg, bp.xattn,
-                                     L.norm_apply(cfg, bp.ln_x, x), enc_out)
-        y, aux_l = _ffn(cfg, bp, L.norm_apply(cfg, bp.ln2, x))
-        x = x + y
+        fn = functools.partial(_block, cfg, bp, window=w if w < S else None,
+                               positions=positions, causal=causal,
+                               enc_out=enc_out)
+        x, aux_l = L.remat(cfg, fn, x)
         for k, v in aux_l.items():
             aux[k] = aux[k] + v if k in aux else v
     return x, aux
 
 
-@torch.no_grad()
 def encode(cfg: ArchConfig, model: TransformerLM, frames: torch.Tensor):
     """Whisper-style encoder over precomputed frame embeddings (the stub
     frontend): frames (B, Senc, D) -> (B, Senc, D)."""
@@ -168,9 +177,11 @@ def encode(cfg: ArchConfig, model: TransformerLM, frames: torch.Tensor):
     return L.norm_apply(cfg, model.enc_ln_f, x)
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, model: TransformerLM, batch: dict):
-    """Full-sequence forward -> (logits (B, S, V), aux).
+def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
+            return_hidden: bool = False):
+    """Full-sequence forward -> (logits (B, S, V), aux), or with
+    ``return_hidden`` the final-normed hidden states (B, S, D) in place of
+    the logits.
 
     batch: ``tokens`` (B, S[text]) int; optional ``patch_embeds``
     (B, P, D) (VLM, prepended) and ``enc_frames`` (B, Senc, D) (audio).
@@ -187,7 +198,35 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict):
     x, aux = _run_blocks(cfg, model.blocks, x, cfg.layer_windows(S),
                          causal=True, enc_out=enc_out)
     x = L.norm_apply(cfg, model.ln_f, x)
+    if return_hidden:
+        return x, aux
     return L.logits_head(cfg, model.head, model.embed, x), aux
+
+
+def loss_fn(cfg: ArchConfig, model: TransformerLM, batch: dict):
+    """Next-token cross entropy, chunked over the sequence so the (B, S, V)
+    logits never exist (plus, for MoE, 0.01 of the load-balance loss and
+    1e-3 of the router z-loss, each averaged over layers) -> (loss,
+    metrics).  A VLM's patch positions are cut before the loss; with no
+    ``labels`` in the batch the labels are the tokens shifted by one."""
+    hidden, aux = forward(cfg, model, batch, return_hidden=True)
+    tokens = batch["tokens"]
+    n_prefix = hidden.shape[1] - tokens.shape[1]    # vlm patches prepended
+    labels = batch.get("labels")
+    if labels is None:
+        labels, mask = L.shifted_labels(tokens)
+    else:
+        mask = batch.get("loss_mask", torch.ones_like(labels,
+                                                      dtype=torch.float32))
+    loss = L.lm_loss_from_hidden(cfg, model.head, model.embed,
+                                 hidden[:, n_prefix:], labels, mask)
+    metrics = {"nll": loss}
+    if cfg.moe:
+        lb = aux["load_balance"] / cfg.n_layers
+        z = aux["router_z"] / cfg.n_layers
+        metrics.update(load_balance=lb, router_z=z)
+        loss = loss + 0.01 * lb + 1e-3 * z
+    return loss, metrics
 
 
 # ========================================================== decode caches ==

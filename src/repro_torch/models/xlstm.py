@@ -16,6 +16,7 @@ decode cache holds ``Tagged("mlstm", (C, n, m))`` or ``Tagged("slstm",
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -303,14 +304,29 @@ class XLSTMLM(nn.Module):
         self.head = L.Dense(cfg.d_model, cfg.vocab, **kw)
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, model: XLSTMLM, batch: dict):
-    """Full-sequence forward -> (logits (B, S, V), {})."""
+def forward(cfg: ArchConfig, model: XLSTMLM, batch: dict, *,
+            return_hidden: bool = False):
+    """Full-sequence forward -> (logits (B, S, V), {}), or with
+    ``return_hidden`` the final-normed hidden states (B, S, D); each block
+    under :func:`repro_torch.models.layers.remat`."""
     x = L.embed(cfg, model.embed, batch["tokens"])
     for i, bp in enumerate(model.blocks):
-        x = (slstm_block if _is_slstm(cfg, i) else mlstm_block)(cfg, bp, x)
+        fn = slstm_block if _is_slstm(cfg, i) else mlstm_block
+        x = L.remat(cfg, functools.partial(fn, cfg, bp), x)
     x = L.norm_apply(cfg, model.ln_f, x)
+    if return_hidden:
+        return x, {}
     return L.logits_head(cfg, model.head, model.embed, x), {}
+
+
+def loss_fn(cfg: ArchConfig, model: XLSTMLM, batch: dict):
+    """Chunked next-token cross entropy -> (loss, {"nll": loss}); the
+    sLSTM's loop differentiates as plain torch."""
+    hidden, _ = forward(cfg, model, batch, return_hidden=True)
+    labels, mask = L.shifted_labels(batch["tokens"])
+    loss = L.lm_loss_from_hidden(cfg, model.head, model.embed, hidden,
+                                 labels, mask)
+    return loss, {"nll": loss}
 
 
 def init_decode_cache(cfg: ArchConfig, B: int, max_seq: int, device) -> dict:

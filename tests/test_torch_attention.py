@@ -241,3 +241,97 @@ def test_cuda_launch_counts_rise_and_attention_matches_plain():
             torch.testing.assert_close(
                 out.float(), ref.flash_attention_ref(
                     x[0], x[1], x[2], causal=True, window=16).float(), **tol)
+
+
+# The flash backward's plain version: against jax's gradient of the
+# reference's blockwise flash_attention_xla (its custom_vjp backward, at
+# blocks of 16 so the queries and keys are padded) in f32, and against
+# autograd of the port's dense flash_attention_ref; the port's autograd
+# function (CPU backward = the plain version) too.  Causal with GQA G 4, a
+# window with G 5, non-causal Sq != Skv with G 1, and causal with a window
+# that leaves the rows from 14 on without a live key (G 2).
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window", [
+    (2, 4, 1, 40, 40, 16, True, None),
+    (1, 5, 1, 33, 33, 8, True, 7),
+    (2, 3, 3, 20, 37, 8, False, None),
+    (1, 4, 2, 40, 10, 8, True, 5),
+])
+def test_flash_backward_matches_jax(B, Hq, Hkv, Sq, Skv, D, causal, window):
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    g = rng.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+
+    @jax.jit
+    def ref_vjp(q, k, v, g):
+        out, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_xla(
+            q, k, v, causal=causal, window=window, block_q=16, block_kv=16),
+            q, k, v)
+        return out, vjp(g)
+
+    want_out, want = ref_vjp(q, k, v, g)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = tref.flash_attention_lse_ref(tq, tk, tv, causal=causal,
+                                            window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               **TOL["float32"])
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tg,
+                                       causal=causal, window=window)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    dense = torch.autograd.grad(tref.flash_attention_ref(
+        *leaves, causal=causal, window=window), leaves, tg)
+    via_op = torch.autograd.grad(tops.flash_attention(
+        *leaves, causal=causal, window=window), leaves, tg)
+    for a, b, c, w in zip(got, dense, via_op, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w),
+                                   **TOL["float32"])
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL["float32"])
+        assert torch.equal(a, c)
+    if window == 5:                   # rows 14.. have no key: no gradient
+        assert not bool(got[0][:, :, 14:].any())
+        assert bool((lse[:, :, 14:] <= -1e29).all())
+
+
+def test_flash_forward_without_grad_saves_nothing():
+    """With nothing requiring grad the op is the plain forward call (no
+    autograd node); with grad on an input it goes through the autograd
+    function, whose CPU forward is the same plain version."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 9, 8)).astype(
+        np.float32)) for _ in range(3))
+    plain = tops.flash_attention(q, k, v, causal=True, window=4)
+    assert plain.grad_fn is None
+    with_grad = tops.flash_attention(q.requires_grad_(True), k, v,
+                                     causal=True, window=4)
+    assert type(with_grad.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert torch.equal(with_grad.detach(), plain)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_launches_and_matches_plain():
+    """On the card: a grad through ``ops.flash_attention`` launches the
+    forward with its lse once and the backward kernel once, and the
+    gradients equal the plain backward's within 1e-4 of their largest
+    magnitude (f32), bit-identical across two runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(8)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((2, 4, 40, 64), (2, 1, 40, 64),
+                                      (2, 1, 40, 64), (2, 4, 40, 64)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = fa.launches.n, fa.bwd_launches.n
+    out = tops.flash_attention(*leaves, causal=True, window=16)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (fa.launches.n, fa.bwd_launches.n) == (f0 + 1, b0 + 1)
+    o, lse = tref.flash_attention_lse_ref(q, k, v, causal=True, window=16)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=True,
+                                        window=16)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    again = torch.autograd.grad(tops.flash_attention(
+        *leaves, causal=True, window=16), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Run chosen model phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/torch_chip_phases.py [attn] [serve:ARCH ...] [dvf:ARCH ...]
+    python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
+        [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
         [--seed 0] [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
-against its plain version), ``serve:ARCH`` a serving phase of
+against its plain version), ``attn_bwd`` the flash backward's (and the
+forward's log-sum-exp) against their plain versions, timed beside SDPA's
+backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
+more step) and ``train_ckpt`` the training phases, ``serve:ARCH`` a
+serving phase of
 ``chip_smoke.SERVE`` (``--profile`` traces its window of steps) and
 ``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32
 (``--profile`` traces one more forward),
@@ -56,6 +61,14 @@ def main() -> int:
         t = time.perf_counter()
         if phase == "attn":
             out[phase] = cs.attention_kernel_phase(dev, args.seed)
+        elif phase == "attn_bwd":
+            out[phase] = cs.attention_bwd_phase(dev, args.seed)
+        elif phase == "train_vs_cpu":
+            out[phase] = cs.train_vs_cpu_phase(dev, args.seed)
+        elif phase == "train:gemma3-1b":
+            out[phase] = cs.train_phase(dev, args.seed, args.profile)
+        elif phase == "train_ckpt":
+            out[phase] = cs.train_ckpt_phase(dev, args.seed)
         elif phase.startswith("serve:"):
             out[phase] = cs.serving_phase(dev, args.seed, attn, phase[6:],
                                           profile=args.profile)
