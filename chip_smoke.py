@@ -42,21 +42,25 @@ Phases, each of which must pass or the script exits non-zero:
    25 over 5 heads of 64, S 1152); paged at olmoe's G 1 (16 heads of 128),
    whisper's G 1 (20 heads of 64), gemma3-12b's global layers (16 over 8
    heads of 256) and hymba's (25 over 5 heads of 64, 3 pages);
-   ``attn_bwd``: the flash backward kernel (dq, dk, dv) and both forward
-   kernels' log-sum-exp against their plain versions (``ATTN_BWD_CASES``:
-   gemma3-1b's B 4, 4 over 1 heads of 256, S 1024, causal with window 512
-   and without; hymba's 25 over 5 heads of 64, window 1024, S 1152;
-   whisper's non-causal encoder, 20 heads of 64, 1500 frames; qwen's 40
-   over 8 heads of 128, S 4096; a small ragged non-causal case; a case
-   with rows that see no key), in f32 within 1e-4 of the plain version's
-   largest magnitude and in bf16 against the plain version in f32 from the
-   same bf16 inputs within ``BWD_BF16_ROUNDING`` (Delta left out and the
-   window one key too wide planted as faults that must exceed it), two
-   runs bit-identical; timed beside its bound (the function's five
-   products; the design's seven, with the dQ pass's recomputed S and dP,
-   beside it), its plain version and SDPA's backward in bf16 (at
-   gemma3-1b's window shape both device times of a CUDA graph of 20
-   calls, the median of 7 replays with their spread);
+   ``attn_bwd``: the flash backward's two variants (dq, dk, dv) and both
+   forward kernels' log-sum-exp against their plain versions
+   (``ATTN_BWD_CASES``: gemma3-1b's B 4, 4 over 1 heads of 256, S 1024,
+   causal with window 512 and without; hymba's 25 over 5 heads of 64,
+   window 1024, S 1152; whisper's non-causal encoder, 20 heads of 64, 1500
+   frames; qwen's 40 over 8 heads of 128, S 4096; a small ragged
+   non-causal case; a case with rows that see no key): f32 on the
+   ``"simt"`` variant within 1e-4 of the plain version's largest
+   magnitude; bf16 against the plain version in f32 from the same bf16
+   inputs, on ``"tc"`` (D 64, 128, 256) within ``BWD_TC_ROUNDING`` and no
+   further than twice SDPA's bf16 backward, on ``"simt"`` (other D)
+   within ``BWD_BF16_ROUNDING`` (Delta left out and the window one key
+   too wide planted as faults that must exceed each), the variant checked
+   per case, two runs bit-identical; timed beside its bound (the five
+   products the function needs, which both variants do), and at
+   gemma3-1b's window shape each variant, its plain version and SDPA's
+   backward in its dtype (f32: the memory-efficient backend) as device
+   times of a CUDA graph of 20 calls, the median of 7 replays with their
+   spread;
 5. the BaM slice at full size: BFS (async tokens) and CC over a
    GAP-urand-style graph of 2^23 vertices and degree 32 (E = 2^28 int32
    edges in pinned host storage), 4 KiB cache lines, a 256 MiB cache (a
@@ -157,7 +161,8 @@ Phases, each of which must pass or the script exits non-zero:
    corpus, B 4, S 1024, 8 AdamW steps through ``run_training`` with a
    failure injected before step 4 and no checkpoint directory, so 12 steps
    run; finite losses, grad norms above 0, every parameter changed, one
-   restart, 2 x 26 flash forward and 26 backward launches a step run; ms a
+   restart, 2 x 26 flash forward and 26 backward launches a step run, the
+   backward all on its f32 ``"simt"`` variant; ms a
    step, tokens/s, peak bytes and model FLOP/s printed); ``train_ckpt``
    (gemma3-1b's smoke config with head dim 16: a failure at step 5 restores
    step 4 from ``LATEST``, final parameters and moments bit-identical to an
@@ -1035,6 +1040,19 @@ PEAK_F32_FLOPS = 67e12          # SIMT float32, NVIDIA data sheet
 # key too wide) must exceed that limit.
 BWD_F32_LIMIT = 1e-4
 BWD_BF16_ROUNDING = dict(rel=2.0 ** -8, f32=BWD_F32_LIMIT)
+# The tensor-core variant ("tc", bf16 at D 64, 128, 256) also rounds P and
+# dS to bf16 before the three products that read them (dV = P^T dO, dK =
+# dS^T Q, dQ = dS K): each of a gradient element's terms moves by at most
+# 2^-9 of itself, independently, so the element by a random walk of
+# standard deviation 2^-9 / sqrt(3) times the root-sum-square R of its
+# terms (ref.flash_attention_bwd_rss_ref).  Its limit adds 4 x 2^-9 R =
+# 2^-7 R to BWD_BF16_ROUNDING's: 6.9 standard deviations, and the worst
+# case (every term rounded by 2^-9 in one direction) up to 16 terms.  The
+# same planted faults must exceed it, and its largest error against the
+# plain version may be at most twice SDPA's bf16 backward's on the same
+# inputs (BWD_TC_VS_SDPA).
+BWD_TC_ROUNDING = dict(rel=2.0 ** -8, rss=2.0 ** -7, f32=BWD_F32_LIMIT)
+BWD_TC_VS_SDPA = 2.0
 # name, B, Hq, Hkv, Sq, Skv, D, causal, window
 ATTN_BWD_CASES = [
     ("gemma3-1b window", 4, 4, 1, 1024, 1024, 256, True, 512),
@@ -1058,14 +1076,14 @@ def live_pairs(Sq, Skv, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def bwd_bound(q, k, pairs, dtype, products=5):
+def bwd_bound(q, k, pairs, dtype):
     """(bound ms, what bounds it, flops) of one backward call: 2 D flops a
-    live pair for each of ``products`` products at the card's peak for the
+    live pair for each of the five products the function needs (S, dV,
+    dP, dQ, dK; both variants do just those) at the card's peak for the
     inputs' type, against q, k, v, O, dO and lse read once and dq, dk, dv
-    written once.  The function needs five products (S, dV, dP, dQ, dK);
-    this kernel's design does seven (its dQ pass recomputes S and dP)."""
+    written once."""
     B, Hq, Sq, D = q.shape
-    flops = 2 * products * D * pairs * B * Hq
+    flops = 2 * 5 * D * pairs * B * Hq
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + B * Hq * Sq * 4
     peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
@@ -1102,34 +1120,41 @@ def bwd_rel_err(got, want) -> float:
         scale, 1e-30)
 
 
-def bwd_bf16_ratio(got, want32) -> float:
+def bwd_bf16_ratio(got, want32, rss=None) -> float:
     """The largest |got - want32| / (2^-8 |want32| + 1e-4 max |want32|):
     at most 1 for a kernel whose only error beyond f32 is rounding each
-    gradient to bf16 (``BWD_BF16_ROUNDING``)."""
+    gradient to bf16 (``BWD_BF16_ROUNDING``).  With ``rss`` (the root-sum-
+    square of each element's terms) the ``"tc"`` variant's limit adds 2^-7
+    rss (``BWD_TC_ROUNDING``)."""
     w = want32.double()
     lim = BWD_BF16_ROUNDING["rel"] * w.abs() \
         + BWD_BF16_ROUNDING["f32"] * float(w.abs().max())
+    if rss is not None:
+        lim = lim + BWD_TC_ROUNDING["rss"] * rss.double()
     err = (got.double() - w).abs().nan_to_num(float("inf"))
     return float((err / lim.clamp(min=1e-30)).max())
 
 
 def attention_bwd_phase(dev, seed):
-    """``attn_bwd``: the flash backward kernel and the forward kernels'
-    log-sum-exp against their plain versions on the card (``ATTN_BWD_CASES``
-    in f32 and bf16; both forward variants), two runs bit-identical, the
-    planted faults over the bf16 limit, and the backward timed beside its
-    bound, its plain version and SDPA's backward (bf16).  TF32 off."""
+    """``attn_bwd``: the flash backward's two variants and the forward
+    kernels' log-sum-exp against their plain versions on the card
+    (``ATTN_BWD_CASES`` in f32, on ``"simt"``, and in bf16, on ``"tc"`` at
+    D 64, 128 and 256 and on ``"simt"`` elsewhere; both forward variants),
+    two runs bit-identical, the planted faults over each bf16 limit,
+    ``"tc"`` no further from the plain version than twice SDPA's bf16
+    backward, and at the train step's shape each variant timed from a CUDA
+    graph beside its bound, its plain version and SDPA's backward in its
+    dtype.  TF32 off."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        bwd_launches, flash_attention_bwd_cuda, flash_attention_cuda,
-        variant)
+        bwd_launches, bwd_variant, bwd_variant_launches,
+        flash_attention_bwd_cuda, flash_attention_cuda, variant)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    cases, lse_errs, errs, abs_errs, times = {}, [], [], [], {}
-    entry = None
+    cases, lse_errs, errs, abs_errs, times, timed = {}, [], [], [], {}, {}
     for name, B, Hq, Hkv, Sq, Skv, D, causal, window in ATTN_BWD_CASES:
         pairs = live_pairs(Sq, Skv, causal, window)
         for dtype in ("float32", "bfloat16"):
@@ -1140,7 +1165,10 @@ def attention_bwd_phase(dev, seed):
             dout = torch.randn((B, Hq, Sq, D), generator=gen,
                                device=dev).to(dt)
             kw = dict(causal=causal, window=window)
-            kind = variant(q, k)
+            kind, bkind = variant(q, k), bwd_variant(q, k)
+            if bkind != ("tc" if dtype == "bfloat16" and D in (64, 128, 256)
+                         else "simt"):
+                raise AssertionError(f"attn_bwd {name} {dtype}: {bkind}")
             out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
             want_out, want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
             live = want_lse > -1e29
@@ -1153,16 +1181,17 @@ def attention_bwd_phase(dev, seed):
                                      f"error {lse_err} over {BWD_F32_LIMIT}")
             lse_errs.append(lse_err)
             del want_out, want_lse
-            n0 = bwd_launches.n
+            n0, v0 = bwd_launches.n, bwd_variant_launches[bkind].n
             got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
             again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-            if bwd_launches.n != n0 + 2:
+            if (bwd_launches.n, bwd_variant_launches[bkind].n) \
+                    != (n0 + 2, v0 + 2):
                 raise AssertionError(f"attn_bwd {name}: launches not counted")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"attn_bwd {name} {dtype}: two runs of "
                                      f"one input differ")
             del again
-            r = dict(kind=kind, lse_err=lse_err)
+            r = dict(kind=kind, bwd_kind=bkind, lse_err=lse_err)
             if dtype == "float32":
                 want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                                    **kw)
@@ -1177,8 +1206,11 @@ def attention_bwd_phase(dev, seed):
                 f32 = [t.float() for t in (q, k, v, out)]
                 do32 = dout.float()
                 want = ref.flash_attention_bwd_ref(*f32, lse, do32, **kw)
-                r["ratios"] = [bwd_bf16_ratio(a, b)
-                               for a, b in zip(got, want)]
+                # "tc": BWD_TC_ROUNDING (its rounding points' random walk)
+                rss = (ref.flash_attention_bwd_rss_ref(*f32, lse, do32, **kw)
+                       if bkind == "tc" else (None,) * 3)
+                r["ratios"] = [bwd_bf16_ratio(a, b, c)
+                               for a, b, c in zip(got, want, rss)]
                 planted = {"delta_left_out": ref.flash_attention_bwd_ref(
                     *f32[:3], torch.zeros_like(f32[3]), lse, do32, **kw)}
                 if window is not None and bool(live.all()):
@@ -1186,10 +1218,29 @@ def attention_bwd_phase(dev, seed):
                     # key the wider window would add)
                     planted["window_plus_one"] = ref.flash_attention_bwd_ref(
                         *f32, lse, do32, causal=causal, window=window + 1)
-                r["planted"] = {p: max(bwd_bf16_ratio(a, b)
-                                       for a, b in zip(got, w))
+                r["planted"] = {p: max(bwd_bf16_ratio(a, b, c)
+                                       for a, b, c in zip(got, w, rss))
                                 for p, w in planted.items()}
-                del f32, do32, planted
+                del planted, rss
+                if bkind == "tc":
+                    emul = ref.flash_attention_bwd_tc_ref(*f32, lse, do32,
+                                                          **kw)
+                    r["emulation_rel_errs"] = [bwd_rel_err(a, b)
+                                               for a, b in zip(got, emul)]
+                    del emul
+                    r["rel_errs"] = [bwd_rel_err(a, b)
+                                     for a, b in zip(got, want)]
+                    sdpa, _ = sdpa_backward(q, k, v, dout, causal, window)
+                    r["sdpa_rel_errs"] = [bwd_rel_err(a, b)
+                                          for a, b in zip(sdpa(), want)]
+                    del sdpa
+                    if max(r["rel_errs"]) \
+                            > BWD_TC_VS_SDPA * max(r["sdpa_rel_errs"]):
+                        raise AssertionError(
+                            f"attn_bwd {name} bf16: tc errors "
+                            f"{r['rel_errs']} over {BWD_TC_VS_SDPA} x SDPA's "
+                            f"{r['sdpa_rel_errs']}")
+                del f32, do32
                 if max(r["ratios"]) > 1 or min(r["planted"].values()) <= 1:
                     raise AssertionError(f"attn_bwd {name} bf16: ratios to "
                                          f"the bf16 limit {r}")
@@ -1197,72 +1248,90 @@ def attention_bwd_phase(dev, seed):
             ms = cuda_time_ms(lambda: flash_attention_bwd_cuda(
                 q, k, v, out, lse, dout, **kw), iters=5)
             bms, by, flops = bwd_bound(q, k, pairs, dtype)
-            design_bms = bwd_bound(q, k, pairs, dtype, products=7)[0]
-            r.update(ms=ms, bound_ms=bms, bound_by=by, flops=flops,
-                     design_bound_ms=design_bms)
+            r.update(ms=ms, bound_ms=bms, bound_by=by, flops=flops)
             times[f"{name} {dtype}"] = ms
-            log(f"attn_bwd {name} {dtype}: forward {kind}, {r}; on "
-                f"{nvidia_smi()}")
-            if name == ATTN_BWD_CASES[0][0] and dtype == "float32":
-                # the main path: gemma3-1b's window layers in f32 training
+            log(f"attn_bwd {name} {dtype}: forward {kind}, backward {bkind}, "
+                f"{r}; on {nvidia_smi()}")
+            if name == ATTN_BWD_CASES[0][0]:
+                # the train step's shape (f32: gemma3-1b's window layers):
+                # each variant and SDPA's backward in its dtype, read from a
+                # CUDA graph of 20 calls
                 ms, *ms_spread = graph_spread_ms(
                     lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
                                                      dout, **kw))
-                lib_ms, *lib_spread = sdpa_bwd_ms(B, Hq, Hkv, Sq, D, causal,
-                                                  window, gen, dev)
-                entry = dict(
-                    ms=ms, ms_spread=ms_spread, bound_ms=bms, bound_by=by,
-                    flops=flops, design_bound_ms=design_bms,
-                    design_flops=flops * 7 // 5,
+                eff = dtype == "float32"
+                sdpa, side = sdpa_backward(q, k, v, dout, causal, window,
+                                           efficient=eff)
+                lib_ms, *lib_spread = graph_spread_ms(sdpa, stream=side)
+                del sdpa
+                timed[bkind] = dict(
+                    dtype=dtype, ms=ms, ms_spread=ms_spread, bound_ms=bms,
+                    bound_by=by, flops=flops,
                     plain_ms=cuda_time_ms(lambda: ref.flash_attention_bwd_ref(
                         q, k, v, out, lse, dout, **kw), iters=3),
-                    library_ms=lib_ms, library_ms_spread=lib_spread)
+                    library_ms=lib_ms, library_ms_spread=lib_spread,
+                    library=("SDPA backward, memory-efficient backend, f32, "
+                             "kv heads repeated over the group" if eff else
+                             "SDPA backward, bf16, PyTorch's backend"))
+                log(f"attn_bwd {name} {dtype} ({bkind}) timed: "
+                    f"{timed[bkind]}")
             cases[f"{name} {dtype}"] = r
             del q, k, v, dout, out, lse, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    entry.update(max_abs_err=max(abs_errs), max_rel_err=max(errs),
-                 lse_max_rel_err=max(lse_errs), cases=cases, times=times,
+    entry = dict(timed["simt"], max_abs_err=max(abs_errs),
+                 max_rel_err=max(errs), lse_max_rel_err=max(lse_errs),
+                 variants=timed, cases=cases, times=times,
                  shape=("B=4 Hq=4 Hkv=1 S=1024 D=256 f32 causal window 512 "
                         "(gemma3-1b's window layers, the train step's "
-                        "shape); max_abs_err over every f32 case, "
-                        "max_rel_err relative to the plain version's "
-                        "largest gradient"))
+                        "shape; the simt variant); variants: the same "
+                        "shape in f32 (simt) and bf16 (tc); max_abs_err "
+                        "over every f32 case, max_rel_err relative to the "
+                        "plain version's largest gradient"))
     return {"flash_attention_bwd": entry}
 
 
-def sdpa_bwd_ms(B, Hq, Hkv, S, D, causal, window, gen, dev) -> tuple:
-    """The library yardstick: SDPA's backward in bf16 at the shape, the
-    time of the gradients after one forward with grad (the window as a
-    boolean mask), as ``graph_spread_ms`` gives it (eager readings of 20
-    calls ranged from 0.262 to 1.266 ms over two runs on an H100 80GB
-    HBM3 at 700 W).  Timed only; the port never calls SDPA."""
+def sdpa_backward(q, k, v, dout, causal, window, efficient=False):
+    """SDPA's forward with grad on copies of q, k and v (the window as a
+    boolean mask) on a side stream, and a function that runs its backward
+    for ``dout`` and returns (dq, dk, dv); with the side stream, for
+    ``graph_spread_ms``.  With ``efficient`` the memory-efficient backend,
+    the one that takes f32, on kv heads repeated over their groups (it
+    takes no GQA; dk and dv then come per query head).  The library
+    yardstick, timed and compared only: the port never calls SDPA (eager
+    readings of its backward ranged from 0.262 to 1.266 ms over two runs
+    on an H100 80GB HBM3 at 700 W, so it is read from a CUDA graph)."""
+    import contextlib
+
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q = torch.randn((B, Hq, S, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16).requires_grad_(True)
-    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16).requires_grad_(True)
-    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16).requires_grad_(True)
+    if efficient:
+        G = q.shape[1] // k.shape[1]
+        k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    Sq, Skv = q.shape[2], k.shape[2]
     # autograd runs a backward on its forward's stream: the captured one
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    backend = (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if efficient
+               else contextlib.nullcontext())
+    with torch.cuda.stream(side), backend:
+        kw = dict(enable_gqa=not efficient)
         if window is None:
-            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                               enable_gqa=True)
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                               **kw)
         else:
-            pos = torch.arange(S, device=dev)
-            mask = (pos[None, :] > pos[:, None] - window)
+            qp = torch.arange(Sq, device=q.device)[:, None]
+            kp = torch.arange(Skv, device=q.device)[None, :]
+            mask = kp > qp - window
             if causal:
-                mask &= pos[None, :] <= pos[:, None]
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                               enable_gqa=True)
-        g = torch.randn_like(o)
-    return graph_spread_ms(lambda: torch.autograd.grad(
-        o, (q, k, v), g, retain_graph=True), stream=side)
+                mask &= kp <= qp
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    return (lambda: torch.autograd.grad(o, leaves, dout,
+                                        retain_graph=True)), side
 
 
 # --------------------------------------------------------------- phase 5 --
@@ -2836,7 +2905,9 @@ def train_counters():
     from repro_torch.kernels import flash_attention
 
     return {"flash_attention": flash_attention.launches,
-            "flash_attention_bwd": flash_attention.bwd_launches}
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "flash_attention_bwd.simt":
+                flash_attention.bwd_variant_launches["simt"]}
 
 
 def train_vs_cpu_phase(dev, seed):
@@ -2873,9 +2944,10 @@ def train_vs_cpu_phase(dev, seed):
 
     (loss, g), launches, wall = counted_run(train_counters(),
                                             lambda: grads(model, dev))
-    want = 2 * cfg.n_layers, cfg.n_layers      # forward + remat, backward
-    if (launches["flash_attention"], launches["flash_attention_bwd"]) \
-            != want:
+    # forward + remat, backward (all on the f32 variant)
+    want = 2 * cfg.n_layers, cfg.n_layers, cfg.n_layers
+    if (launches["flash_attention"], launches["flash_attention_bwd"],
+            launches["flash_attention_bwd.simt"]) != want:
         raise AssertionError(f"train_vs_cpu: launches {launches}, want "
                              f"{want}")
     t0 = time.perf_counter()
@@ -2911,7 +2983,8 @@ def train_phase(dev, seed, profile=False):
     ``run_training`` with one failure injected before step 4 and no
     checkpoint directory (a fresh restart: 12 steps run).  Checks finite
     losses, grad_norm > 0, changed parameters, one restart and the flash
-    launches (2 x 26 forwards and 26 backwards a step run)."""
+    launches (2 x 26 forwards and 26 backwards a step run, every backward
+    on the f32 ``"simt"`` variant)."""
     import math
     import shutil
 
@@ -2948,7 +3021,8 @@ def train_phase(dev, seed, profile=False):
                for m in hist):
         raise AssertionError(f"train: losses or grad norms {hist}")
     want = {"flash_attention": 2 * cfg.n_layers * steps_run,
-            "flash_attention_bwd": cfg.n_layers * steps_run}
+            "flash_attention_bwd": cfg.n_layers * steps_run,
+            "flash_attention_bwd.simt": cfg.n_layers * steps_run}
     if launches != want:
         raise AssertionError(f"train: launches {launches}, want {want}")
     model = res.state["params"]
@@ -3124,10 +3198,12 @@ def kernel_entry(name, r, launches):
              "bound_by": r.get("bound_by", "bytes"),
              "library_ms": r.get("library_ms")}
     for key in ("device_ms", "host_us", "floor_ms", "variant",
-                "ms_spread", "library_ms_spread", "design_bound_ms"):
+                "ms_spread", "library_ms_spread", "library", "variants",
+                "variant_launches"):
         if key in r:        # device time, host time a call, fixed cost;
             entry[key] = r[key]    # flash: the kernel that was timed; the
-    return entry                   # backward: spreads, its design's bound
+    return entry                   # backward: spreads, each variant's times
+                                   # and launches
 
 
 def main() -> int:
@@ -3244,6 +3320,11 @@ def main() -> int:
     for name, per_path in path_launches.items():
         require_launched(name, per_path)
         launches[name] = sum(per_path.values())
+    # the backward's launches on the training paths by variant (f32: simt)
+    simt = sum(r["launches"]["flash_attention_bwd.simt"]
+               for r in training.values())
+    kres["flash_attention_bwd"]["variant_launches"] = {
+        "simt": simt, "tc": launches["flash_attention_bwd"] - simt}
     kernels = [kernel_entry(name, kres[name], launches[name])
                for name in REPLACES]
     phases = dict(sres["phase_launches"], **taxi["phase_launches"],

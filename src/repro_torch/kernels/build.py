@@ -46,12 +46,16 @@ SIGNATURES = {
         [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P, _P]),
     "flash_attention_tc_launch": (
         [_P] * 3 + [_I] * 8 + [_L, _F, _P, _P, _P]),
+    "flash_attention_bwd_workspace_floats": [_I] * 8 + [_L, _I],
     "flash_attention_bwd_launch": (
         [_P] * 6 + [_I] * 8 + [_L, _F, _I] + [_P] * 5),
+    "flash_attention_bwd_tc_launch": (
+        [_P] * 6 + [_I] * 8 + [_L, _F] + [_P] * 5),
 }
 # entry points that return something other than a CUDA status (int)
 RESTYPES = {"paged_attention_workspace_floats": _L,
-            "probe_allocate_scratch_words": _L}
+            "probe_allocate_scratch_words": _L,
+            "flash_attention_bwd_workspace_floats": _L}
 
 _lock = threading.Lock()
 _lib = None

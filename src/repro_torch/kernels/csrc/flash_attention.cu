@@ -44,8 +44,6 @@
 // <= q_pos (causal) and kv_pos > q_pos - window (64-bit, so a window near
 // 2^31 cannot overflow), and skip kv tiles that no row of the q tile can
 // see; the result is the same.
-#include <cuda.h>        // CUtensorMap and its enums (types only)
-
 #include <cmath>
 
 #include "common.cuh"
@@ -501,47 +499,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_tc_kernel(
                 : (m_r[r] + log2f(denom)) * 0.6931471805599453f;
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A (BH, S, D) bf16 tensor seen as tiles of [rows][64 columns], 128-byte
-// swizzled; rows past S read as zeros.
-bool make_map(CUtensorMap* m, const void* ptr, int BH, int S, int D,
-              int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

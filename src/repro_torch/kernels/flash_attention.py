@@ -14,10 +14,15 @@ shape, never by catching a failure:
   bf16 at other head dims.
 
 Either writes each row's log-sum-exp when asked (``return_lse``), which
-:func:`flash_attention_bwd_cuda` reads.  A failed build or launch raises.
+:func:`flash_attention_bwd_cuda` reads.  The backward has the same two
+variants under the same rule (:func:`bwd_variant`): ``"tc"`` (TMA and
+``wgmma``, P and dS rounded to bf16 before their products, as
+:func:`flash_attention_bwd_tc_ref` emulates) and ``"simt"`` (register-tiled
+f32 SIMT, the train step's f32 kernel).  A failed build or launch raises.
 ``launches`` counts every forward call; ``variant_launches["tc"]`` and
 ``variant_launches["simt"]`` count which kernel ran; ``bwd_launches``
-counts the backward's calls (its three kernels from one C entry).
+counts the backward's calls (its kernels from one C entry) and
+``bwd_variant_launches`` which variant ran.
 """
 from __future__ import annotations
 
@@ -27,16 +32,21 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_bwd_tc_ref,
                                      flash_attention_lse_ref,
                                      flash_attention_ref)
 
-__all__ = ["bwd_launches", "flash_attention_bwd_cuda",
-           "flash_attention_bwd_ref", "flash_attention_cuda",
+__all__ = ["bwd_launches", "bwd_variant", "bwd_variant_launches",
+           "flash_attention_bwd_cuda", "flash_attention_bwd_ref",
+           "flash_attention_bwd_tc_ref", "flash_attention_cuda",
            "flash_attention_lse_ref", "flash_attention_ref", "launches",
            "variant", "variant_launches"]
 
 launches = _build.LaunchCount("flash_attention")
 bwd_launches = _build.LaunchCount("flash_attention_bwd")
+bwd_variant_launches = {
+    "tc": _build.LaunchCount("flash_attention_bwd.tc"),
+    "simt": _build.LaunchCount("flash_attention_bwd.simt")}
 variant_launches = {"tc": _build.LaunchCount("flash_attention.tc"),
                     "simt": _build.LaunchCount("flash_attention.simt")}
 
@@ -51,6 +61,13 @@ def variant(q: torch.Tensor, k: torch.Tensor) -> str:
             and k.shape[2] >= 1:
         return "tc"
     return "simt"
+
+
+def bwd_variant(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The backward kernel a call runs, by the forward's rule: ``"tc"`` for
+    bf16 with D in (64, 128, 256) and at least one key, ``"simt"``
+    otherwise (every f32 call, so the f32 train step)."""
+    return variant(q, k)
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,8 +145,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: int | None = None):
     """The backward kernel: (dq, dk, dv) in the inputs' dtype from q, k, v,
     the forward's ``out`` and f32 ``lse`` (B, Hq, Sq) and ``dout`` (shaped
-    like q), CUDA tensors; the function of
-    :func:`flash_attention_bwd_ref`.  Deterministic: no atomics."""
+    like q), CUDA tensors; the function of :func:`flash_attention_bwd_ref`
+    (``"simt"``) or, with P and dS rounded to bf16 before their products,
+    of :func:`flash_attention_bwd_tc_ref` (``"tc"``), as
+    :func:`bwd_variant` chooses.  Deterministic: no atomics."""
     _check("flash_attention_bwd", q, k, v, out, dout, window=window)
     if lse.dtype != torch.float32 or lse.shape != q.shape[:3] \
             or not lse.is_contiguous() or lse.device != q.device:
@@ -139,12 +158,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.shape[2] == 0:             # no query: nothing reaches k or v
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    status = _build.lib().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), *_shape_args(q, k, causal, window),
-        int(q.dtype == torch.bfloat16), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _build.stream_ptr(q))
-    _build.check(status, "flash_attention_bwd")
+    kind = bwd_variant(q, k)
+    lib = _build.lib()
+    shape = _shape_args(q, k, causal, window)
+    # Delta, the GQA group's f32 partials and the dS tiles (C sizes them)
+    work = torch.empty(lib.flash_attention_bwd_workspace_floats(
+        *shape[:9], int(kind == "tc")), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), *shape)
+    grads = (work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _build.stream_ptr(q))
+    if kind == "tc":
+        status = lib.flash_attention_bwd_tc_launch(*ptrs, *grads)
+    else:
+        status = lib.flash_attention_bwd_launch(
+            *ptrs, int(q.dtype == torch.bfloat16), *grads)
+    _build.check(status, f"flash_attention_bwd ({kind})")
     bwd_launches.n += 1
+    bwd_variant_launches[kind].n += 1
     return dq, dk, dv

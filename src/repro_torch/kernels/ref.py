@@ -6,9 +6,10 @@ are the plain versions of the five CUDA kernels (the CPU path, and the
 yardstick the kernels are held against on the card);
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` are the
 plain versions of the flash forward with its log-sum-exp and of the flash
-backward kernel; ``sq_enqueue_ref`` and ``wfq_drain_ref`` (with its fault
-accounting) were never Pallas kernels and stay plain torch on every
-device.
+backward kernel (``flash_attention_bwd_tc_ref`` the same with the bf16
+rounding points of its tensor-core variant); ``sq_enqueue_ref`` and
+``wfq_drain_ref`` (with its fault accounting) were never Pallas kernels
+and stay plain torch on every device.
 """
 from __future__ import annotations
 
@@ -73,6 +74,40 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     return _flash_out(s, mask, v, q.shape[1] // k.shape[1], q.dtype), lse
 
 
+def _flash_bwd_pieces(q, k, v, out, lse, dout, causal, window):
+    """P and dS (B, Hq, Sq, Skv) of the flash backward in f32, with dO and
+    the kv heads repeated over their groups."""
+    group = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s, mask = _flash_scores(q, k, causal=causal, window=window)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    do = dout.float()
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vr)
+    delta = (do * out.float()).sum(-1)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, do, kr
+
+
+def _per_kv_head(g, Hkv):
+    B, Hq, S, D = g.shape
+    return g.reshape(B, Hkv, Hq // Hkv, S, D).sum(2)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, round_p_ds):
+    p, ds, do, kr = _flash_bwd_pieces(q, k, v, out, lse, dout, causal,
+                                      window)
+    if round_p_ds:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    Hkv = k.shape[1]
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return (dq.to(q.dtype), _per_kv_head(dk, Hkv).to(k.dtype),
+            _per_kv_head(dv, Hkv).to(v.dtype))
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
@@ -84,26 +119,35 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     each GQA group summed into its kv head.  A row with no live key has
     P = 0 and contributes nothing.  Returns (dq, dk, dv) in the inputs'
     dtype."""
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    group = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    s, mask = _flash_scores(q, k, causal=causal, window=window)
-    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
-    do = dout.float()
-    kr = k.repeat_interleave(group, dim=1).float()
-    vr = v.repeat_interleave(group, dim=1).float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, vr)
-    delta = (do * out.float()).sum(-1)
-    ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return _flash_bwd(q, k, v, out, lse, dout, causal, window, False)
 
-    def per_kv_head(g):
-        return g.reshape(B, Hkv, group, Skv, D).sum(2)
-    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
-            per_kv_head(dv).to(v.dtype))
+
+def flash_attention_bwd_tc_ref(q, k, v, out, lse, dout, *, causal=True,
+                               window=None):
+    """The tensor-core backward kernel's function:
+    :func:`flash_attention_bwd_ref` with P and dS rounded to bf16 before
+    the products dV = P^T dO, dK = dS^T Q and dQ = dS K (dS still from the
+    unrounded P, everything else in f32), as the ``"tc"`` variant rounds
+    them."""
+    return _flash_bwd(q, k, v, out, lse, dout, causal, window, True)
+
+
+def flash_attention_bwd_rss_ref(q, k, v, out, lse, dout, *, causal=True,
+                                window=None):
+    """Per gradient element the root-sum-square of its terms, f32:
+    (sqrt(dS^2 K^2), sqrt((dS^2)^T Q^2), sqrt((P^2)^T dO^2)), the last two
+    summed over each GQA group before the root.  Rounding P or dS to a
+    relative error of at most u, independently per term, moves a gradient
+    element by about u / sqrt(3) times this (one standard deviation)."""
+    p, ds, do, kr = _flash_bwd_pieces(q, k, v, out, lse, dout, causal,
+                                      window)
+    ds2 = ds * ds
+    Hkv = k.shape[1]
+    return (torch.einsum("bhqk,bhkd->bhqd", ds2, kr * kr).sqrt(),
+            _per_kv_head(torch.einsum("bhqk,bhqd->bhkd", ds2,
+                                      q.float() ** 2), Hkv).sqrt(),
+            _per_kv_head(torch.einsum("bhqk,bhqd->bhkd", p * p, do * do),
+                         Hkv).sqrt())
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

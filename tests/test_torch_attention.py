@@ -174,6 +174,24 @@ def test_flash_variant_rule(dtype, D, Skv, kind):
     assert variant(q, k) == kind
 
 
+@pytest.mark.parametrize("dtype,D,Skv,kind", [
+    ("bfloat16", 64, 8, "tc"), ("bfloat16", 128, 8, "tc"),
+    ("bfloat16", 256, 8, "tc"), ("bfloat16", 16, 8, "simt"),
+    ("bfloat16", 96, 8, "simt"), ("bfloat16", 256, 0, "simt"),
+    ("float32", 256, 8, "simt"), ("float32", 64, 8, "simt"),
+])
+def test_flash_bwd_variant_rule(dtype, D, Skv, kind):
+    """The backward's variant follows the forward's rule: bf16 with D in
+    (64, 128, 256) and at least one key runs the tensor-core backward,
+    everything else (every f32 call, so the f32 train step) the SIMT one."""
+    from repro_torch.kernels.flash_attention import bwd_variant
+
+    dt = getattr(torch, dtype)
+    q = torch.empty((1, 4, 4, D), dtype=dt)
+    k = torch.empty((1, 2, Skv, D), dtype=dt)
+    assert bwd_variant(q, k) == kind
+
+
 @pytest.mark.cuda
 def test_cuda_launch_counts_rise_and_attention_matches_plain():
     """On the card: each of the five kernels' launch count rises by one when
@@ -293,6 +311,49 @@ def test_flash_backward_matches_jax(B, Hq, Hkv, Sq, Skv, D, causal, window):
         assert bool((lse[:, :, 14:] <= -1e29).all())
 
 
+# The tensor-core backward's rounding points (P and dS rounded to bf16
+# before dV, dK and dQ), emulated by the plain flash_attention_bwd_tc_ref,
+# against jax's f32 gradient of the reference's flash_attention_xla on
+# bf16-rounded inputs.  Limit: chip_smoke's BWD_TC_ROUNDING without its
+# output rounding (the emulation returns f32 here): 2^-7 of the root-sum-
+# square of each element's terms (the rounding's random walk; the worst
+# case up to 16 terms) plus 1e-4 of the largest gradient (f32 order).  One
+# shape for every case, so the cases share one reference compile.
+_TC_REF_SHAPE = dict(B=1, Hq=4, Hkv=2, S=80, D=64, window=24)
+
+
+@jax.jit
+def _xla_flash_vjp(q, k, v, g):
+    out, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_xla(
+        q, k, v, causal=True, window=_TC_REF_SHAPE["window"], block_q=16,
+        block_kv=16), q, k, v)
+    return vjp(g)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_bwd_tc_rounding_emulation_matches_jax(seed):
+    B, Hq, Hkv, S, D, window = (_TC_REF_SHAPE[n] for n in
+                                ("B", "Hq", "Hkv", "S", "D", "window"))
+    rng = np.random.default_rng(20 + seed)
+    q, k, v, g = (np.array(jnp.asarray(rng.standard_normal(s), jnp.bfloat16)
+                           .astype(jnp.float32))
+                  for s in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                            (B, Hq, S, D)))
+    want = _xla_flash_vjp(q, k, v, g)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    kw = dict(causal=True, window=window)
+    out, lse = tref.flash_attention_lse_ref(tq, tk, tv, **kw)
+    got = tref.flash_attention_bwd_tc_ref(tq, tk, tv, out, lse, tg, **kw)
+    plain = tref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tg, **kw)
+    rss = tref.flash_attention_bwd_rss_ref(tq, tk, tv, out, lse, tg, **kw)
+    for a, p, r, w in zip(got, plain, rss, want):
+        w = torch.from_numpy(np.array(w)).double()
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        lim = 2.0 ** -7 * r.double() + 1e-4 * float(w.abs().max())
+        assert bool(((a.double() - w).abs() <= lim).all())
+        assert not torch.equal(a, p)        # the rounding points are there
+
+
 def test_flash_forward_without_grad_saves_nothing():
     """With nothing requiring grad the op is the plain forward call (no
     autograd node); with grad on an input it goes through the autograd
@@ -311,9 +372,13 @@ def test_flash_forward_without_grad_saves_nothing():
 @pytest.mark.cuda
 def test_cuda_flash_backward_launches_and_matches_plain():
     """On the card: a grad through ``ops.flash_attention`` launches the
-    forward with its lse once and the backward kernel once, and the
-    gradients equal the plain backward's within 1e-4 of their largest
-    magnitude (f32), bit-identical across two runs."""
+    forward with its lse once and the backward kernel once, on its f32
+    ``"simt"`` variant, and the gradients equal the plain backward's within
+    1e-4 of their largest magnitude (f32), bit-identical across two runs;
+    in bf16 at D 64 the backward runs its ``"tc"`` variant, within
+    ``BWD_TC_ROUNDING`` of the plain version in f32 (as chip_smoke.py
+    states it: 2^-8 of the element, 2^-7 of its terms' root-sum-square and
+    1e-4 of the largest gradient), also bit-identical across two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
     from repro_torch.kernels import flash_attention as fa
@@ -324,9 +389,11 @@ def test_cuda_flash_backward_launches_and_matches_plain():
                                       (2, 1, 40, 64), (2, 4, 40, 64)))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     f0, b0 = fa.launches.n, fa.bwd_launches.n
+    s0 = fa.bwd_variant_launches["simt"].n
     out = tops.flash_attention(*leaves, causal=True, window=16)
     got = torch.autograd.grad(out, leaves, g)
     assert (fa.launches.n, fa.bwd_launches.n) == (f0 + 1, b0 + 1)
+    assert fa.bwd_variant_launches["simt"].n == s0 + 1
     o, lse = tref.flash_attention_lse_ref(q, k, v, causal=True, window=16)
     want = tref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=True,
                                         window=16)
@@ -334,4 +401,23 @@ def test_cuda_flash_backward_launches_and_matches_plain():
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     again = torch.autograd.grad(tops.flash_attention(
         *leaves, causal=True, window=16), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    qb, kb, vb, gb = (t.bfloat16() for t in (q, k, v, g))
+    ob, lb = fa.flash_attention_cuda(qb, kb, vb, causal=True, window=16,
+                                     return_lse=True)
+    t0 = fa.bwd_variant_launches["tc"].n
+    got = fa.flash_attention_bwd_cuda(qb, kb, vb, ob, lb, gb, causal=True,
+                                      window=16)
+    assert fa.bwd_variant_launches["tc"].n == t0 + 1
+    f32 = [t.float() for t in (qb, kb, vb, ob)]
+    want = tref.flash_attention_bwd_ref(*f32, lb, gb.float(), causal=True,
+                                        window=16)
+    rss = tref.flash_attention_bwd_rss_ref(*f32, lb, gb.float(), causal=True,
+                                           window=16)
+    for a, b, r in zip(got, want, rss):
+        lim = 2.0 ** -8 * b.abs() + 2.0 ** -7 * r + 1e-4 * b.abs().max()
+        assert bool(((a.float() - b).abs() <= lim).all())
+    again = fa.flash_attention_bwd_cuda(qb, kb, vb, ob, lb, gb, causal=True,
+                                        window=16)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
