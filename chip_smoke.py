@@ -166,7 +166,23 @@ Phases, each of which must pass or the script exits non-zero:
    step, tokens/s, peak bytes and model FLOP/s printed); ``train_ckpt``
    (gemma3-1b's smoke config with head dim 16: a failure at step 5 restores
    step 4 from ``LATEST``, final parameters and moments bit-identical to an
-   uninterrupted run).
+   uninterrupted run);
+15. the mesh, on a process group of one rank over NCCL (a FileStore, no
+   network): ``mesh_train:gemma3-1b`` (the ``train_vs_cpu`` width and
+   depth at B 4, S 1024, f32: 3 steps of ``make_train_step(mesh=...)`` on
+   a (1, 1) data/model mesh with the state sharded by ``state_shardings``,
+   losses, metrics and parameters bit-identical to 3 plain steps from the
+   same seed and batches; one pod-compressed step on (1, 1, 1) whose
+   residual is exactly ``gf - q * scale`` of the plain gradient; ms a step
+   of both) and ``flash_decode_shards`` (the paged kernel's log-sum-exp
+   output at the serving shape, f32 and bf16, against its plain version,
+   with an empty row; 1, 2, 4 and 8 shards emulated on page subsets and
+   combined by ``transformer.combine_shards``, within TOL of the unsharded
+   kernel in f32 and bf16 rounding of the f32 plain version in bf16; then
+   qwen2.5-14b at full width, 4 layers, bf16, B 2, S 256 through
+   ``prefill`` with ``flash_decode_shards`` under the mesh, the pools
+   split on the page axis, logits bit-identical to the plain decode and
+   every paged launch the lse variant).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
@@ -181,8 +197,9 @@ the ms a step before, in and after the traced window.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
 also with their launches in each phase of 5-8, the attention kernels in
-each serving phase, each forward of 11 and 13 and each training phase of
-14; every phase sets the
+each serving phase, each forward of 11 and 13, each training phase of
+14 and each phase of 15; the paged kernel's launches with and without the
+log-sum-exp; every phase sets the
 counts to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3179,6 +3196,322 @@ def train_phases(dev, seed, profile=False) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the mesh --
+MESH_TRAIN_STEPS = 3
+FLASH_DECODE_SHARDS = (1, 2, 4, 8)
+
+
+def start_world1():
+    """A process group of one rank over NCCL, met through a FileStore under
+    ``build/`` (no network), for the mesh phases; ``stop_world1`` ends
+    it."""
+    import torch
+    import torch.distributed as dist
+
+    path = ROOT / "build" / "chip_nccl_store"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
+def warm_groups(mesh) -> float:
+    """One all-reduce on each axis's group of ``mesh``, so that NCCL makes
+    its communicators before a timed run; returns the seconds it took."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    for axis in mesh.mesh_dim_names:
+        dist.all_reduce(torch.zeros(1, device="cuda"),
+                        group=mesh.get_group(axis))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def stop_world1():
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    (ROOT / "build" / "chip_nccl_store").unlink(missing_ok=True)
+
+
+def mesh_train_phase(dev, seed):
+    """``mesh_train:gemma3-1b``: gemma3-1b at full width cut to 6 layers (5
+    window, 1 global), B 4, S 1024, f32 with TF32 off.  MESH_TRAIN_STEPS
+    steps of ``make_train_step(mesh=...)`` on a (1, 1) data/model mesh of
+    the world-1 NCCL group (the state sharded by ``state_shardings``),
+    then as many plain steps from the same seed and batches: losses,
+    metrics and every parameter bit-identical.  Then one pod-compressed
+    step on a (1, 1, 1) pod/data/model mesh: its loss the plain one's and
+    its residual ``ef`` exactly ``gf - q * scale`` of the plain gradient.
+    ms a step of both steps (median, host clock after each step's loss
+    reaches the host)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import param_axes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 shard_state,
+                                                 state_shardings)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S = 4, 1024
+    cfg = get_config("gemma3-1b").replace(n_layers=6, dtype="float32")
+    if sum(w < S for w in cfg.layer_windows(S)) != 5:
+        raise AssertionError("mesh_train: not 5 window layers")
+    api = build_model(cfg, dev)
+    acfg = opt.AdamWConfig(lr=3e-3, warmup=10, total_steps=MESH_TRAIN_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+               for _ in range(MESH_TRAIN_STEPS)]
+
+    def fresh():
+        model = api.init(seed, S).requires_grad_(True)
+        return {"params": model, "opt": opt.adamw_init(model, acfg)}
+
+    def run(step, state, n):
+        metrics, times = [], []
+        for b in batches[:n]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            times.append(time.perf_counter() - t0)
+        return state, metrics, times
+
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    nccl_s = warm_groups(mesh)
+    state = fresh()
+    state = shard_state(state, state_shardings(
+        cfg, param_axes(state["params"]), mesh, state["params"], acfg))
+    step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
+    (state, mesh_m, mesh_t), launches, _ = counted_run(
+        train_counters(), lambda: run(step, state, MESH_TRAIN_STEPS))
+    require_launched("mesh_train", launches)
+    mesh_params = {n: p.to_local() for n, p in
+                   state["params"].named_parameters()}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, plain_m, plain_t = run(make_train_step(cfg, api, adamw=acfg),
+                                  fresh(), MESH_TRAIN_STEPS)
+    differ = [n for n, p in plain["params"].named_parameters()
+              if not torch.equal(p, mesh_params[n])]
+    if mesh_m != plain_m or differ:
+        raise AssertionError(f"mesh_train: the mesh step differs from the "
+                             f"plain step: metrics {mesh_m} against "
+                             f"{plain_m}; parameters {differ}")
+    del plain, mesh_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pod-compressed step on (1, 1, 1): one pod, so the mean is the
+    # quantised gradient and ef its quantisation error
+    pcfg = dataclasses.replace(acfg, pod_compression=True)
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    nccl_s += warm_groups(mesh3)
+    ref_model = api.init(seed, S).requires_grad_(True)
+    loss, _ = api.loss(ref_model, batches[0])
+    names, params = zip(*ref_model.named_parameters())
+    gf = dict(zip(names, torch.autograd.grad(loss, params)))
+    del ref_model
+    st = fresh()
+    st["opt"] = opt.adamw_init(st["params"], pcfg)
+    st = shard_state(st, state_shardings(cfg, param_axes(st["params"]),
+                                         mesh3, st["params"], pcfg))
+    t0 = time.perf_counter()
+    st, pm = make_train_step(cfg, api, adamw=pcfg, mesh=mesh3)(st, batches[0])
+    pod_loss = float(pm["loss"])
+    pod_s = time.perf_counter() - t0
+    bad = []
+    for n, g in gf.items():
+        scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(g / scale), -127, 127)
+        if not torch.equal(st["opt"]["ef"][n].to_local(), g - q * scale):
+            bad.append(n)
+    if bad or pod_loss != plain_m[0]["loss"]:
+        raise AssertionError(f"mesh_train pod step: loss {pod_loss} (plain "
+                             f"{plain_m[0]['loss']}); ef != gf - q * scale "
+                             f"for {bad}")
+    del st, gf
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = dict(arch=cfg.name, layers=cfg.n_layers, B=B, S=S,
+             steps=MESH_TRAIN_STEPS, losses=[m["loss"] for m in mesh_m],
+             bit_identical=True, mesh_ms_per_step=statistics.median(mesh_t)
+             * 1e3, plain_ms_per_step=statistics.median(plain_t) * 1e3,
+             mesh_step_s=mesh_t, plain_step_s=plain_t,
+             pod_step_s=pod_s, pod_ef_exact=True, launches=launches,
+             nccl_setup_s=nccl_s)
+    log(f"mesh_train:{cfg.name} (6 layers, B {B}, S {S}, f32): "
+        f"{MESH_TRAIN_STEPS} steps on a (1, 1) mesh bit-identical to the "
+        f"plain steps (losses {r['losses']}); "
+        f"{r['mesh_ms_per_step']:.3f} ms a mesh step, "
+        f"{r['plain_ms_per_step']:.3f} ms a plain step; pod step on "
+        f"(1, 1, 1) {pod_s * 1e3:.3f} ms, loss equal, ef = gf - q * scale "
+        f"exactly; launches {launches}; on {nvidia_smi()}")
+    return r
+
+
+def flash_decode_phase(dev, seed, attn, profile=False):
+    """``flash_decode_shards``: the paged kernel's log-sum-exp at the
+    serving phase's paged shape (qwen2.5-14b: B 8, 40 over 8 heads of 128,
+    5 pages of 256, one hole a sequence, the last sequence empty) against
+    its plain version, f32 and bf16, the output unchanged by asking for
+    it; 1, 2, 4 and 8 shards emulated (each a contiguous range of physical
+    pages, the rest of the table -1, combined by ``combine_shards``)
+    against the unsharded kernel, within TOL in f32 and bf16 rounding of
+    the plain f32 version in bf16; then ``prefill`` of qwen2.5-14b at full
+    width, 4 layers (``DVF``), bf16, B 2, S 256 with ``flash_decode_shards``
+    under the world-1 mesh, logits bit-identical to the plain decode's and
+    every paged launch the lse variant.  With ``profile``, 16 more steps
+    of each decode run under torch.profiler
+    (``chiprun_out/profile_flash_decode_{plain,mesh}.txt``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (lse_launches,
+                                                     paged_attention_cuda)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    res = {"lse_errs": {}, "shard_errs": {}, "shard_ratios": {}}
+    for dtype in ("float32", "bfloat16"):
+        q, kp, vp, pt, sl = paged_inputs(8, 40, 8, 128, 256, 5, (600, 1280),
+                                         getattr(torch, dtype), gen, dev)
+        sl[-1] = 0                                  # a row with no live key
+        out, lse = paged_attention_cuda(q, kp, vp, pt, sl, return_lse=True)
+        if not torch.equal(out, paged_attention_cuda(q, kp, vp, pt, sl)):
+            raise AssertionError(f"flash_decode {dtype}: asking for the lse "
+                                 "changed the output")
+        want_out, want_lse = ref.paged_attention_lse_ref(q, kp, vp, pt, sl)
+        require_close(f"paged lse output {dtype}", out, want_out, dtype)
+        empty = torch.isneginf(want_lse)
+        if not torch.equal(torch.isneginf(lse), empty) or out[-1].any():
+            raise AssertionError(f"flash_decode {dtype}: the empty row's lse "
+                                 f"or output is wrong")
+        res["lse_errs"][dtype] = require_close(
+            f"paged lse {dtype}", lse[~empty], want_lse[~empty], "float32")
+        qf, kf, vf = q.float(), kp.float(), vp.float()
+        want32 = ref.paged_attention_ref(qf, kf, vf, pt, sl)
+        scale = ref.paged_attention_ref(qf, kf, vf.abs(), pt, sl)
+        P = kp.shape[1]
+        for n in FLASH_DECODE_SHARDS:
+            parts = [paged_attention_cuda(
+                q, kp, vp, torch.where((pt >= 0) & (pt * n // P == s), pt,
+                                       -1).to(torch.int32), sl,
+                return_lse=True) for s in range(n)]
+            got = T.combine_shards(torch.stack([o for o, _ in parts]),
+                                   torch.stack([l for _, l in parts]),
+                                   lambda t: t.amax(0), lambda t: t.sum(0))
+            name = f"{n} shards {dtype}"
+            res["shard_errs"][name] = require_close(
+                f"flash_decode {name}", got, out, dtype)
+            if dtype == "bfloat16":
+                r = bf16_rounding_ratio(got, want32, scale)
+                res["shard_ratios"][name] = r
+                if r > 1:
+                    raise AssertionError(f"flash_decode {name}: {r} times "
+                                         f"the bf16 rounding limit")
+        if dtype == "bfloat16":
+            res["lse_ms"] = cuda_time_ms(lambda: paged_attention_cuda(
+                q, kp, vp, pt, sl, return_lse=True), iters=50)
+            res["ms"] = cuda_time_ms(lambda: paged_attention_cuda(
+                q, kp, vp, pt, sl), iters=50)
+        del q, kp, vp, pt, sl, qf, kf, vf, want32, scale
+    log(f"flash_decode_shards: paged lse within TOL ({res['lse_errs']}), "
+        f"the empty row -inf and 0; shards {FLASH_DECODE_SHARDS} combined "
+        f"within TOL of the unsharded kernel ({res['shard_errs']}), bf16 "
+        f"within {max(res['shard_ratios'].values())} of the rounding limit; "
+        f"bf16 {res['lse_ms']:.6f} ms with the lse, {res['ms']:.6f} without")
+
+    layers, B, S = DVF["qwen2.5-14b"]
+    cfg = get_config("qwen2.5-14b").replace(n_layers=layers,
+                                            dtype="bfloat16")
+    model = build_model(cfg, dev).init(seed + 3, max_seq=S)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    counters = dict(attn, **{"paged_attention.lse": lse_launches})
+    (plain, _), plain_launches, plain_s = counted_run(
+        counters, lambda: T.prefill(cfg, model, {"tokens": toks}, S))
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    nccl_s = warm_groups(mesh)
+    fcfg = cfg.replace(flash_decode_shards=True)
+
+    def sharded():
+        with shd.activate(mesh):
+            return T.prefill(fcfg, model, {"tokens": toks}, S)
+
+    (logits, cache), launches, mesh_s = counted_run(counters, sharded)
+    pools = [t.value["k_pages"] for t in cache["layers"]
+             if t.kind == "paged"]
+    want = layers * S
+    if plain_launches["paged_attention"] != want \
+            or launches["paged_attention"] != want \
+            or launches["paged_attention.lse"] != want \
+            or plain_launches["paged_attention.lse"] != 0:
+        raise AssertionError(f"flash_decode: launches {launches} (plain "
+                             f"{plain_launches}), want {want} lse launches")
+    if not all(shd.spec_of(p) == T.POOL_SPEC for p in pools):
+        raise AssertionError("flash_decode: the pools are not split on the "
+                             "page axis")
+    if not torch.equal(logits, plain):
+        raise AssertionError(f"flash_decode: logits under the mesh differ "
+                             f"from the plain decode by "
+                             f"{max_abs_err(logits, plain)}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        for tag, c, act in (("plain", cfg, None), ("mesh", fcfg, mesh)):
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with shd.activate(act):
+                    T.prefill(c, model, {"tokens": toks[:, :16]}, S)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            res[f"profile_{tag}"] = profile_table(f"flash_decode_{tag}",
+                                                  prof, wall)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(decode_launches=launches, plain_decode_launches=plain_launches,
+               decode_s=mesh_s, plain_decode_s=plain_s, layers=layers, B=B,
+               S=S, logits_bit_identical=True, nccl_setup_s=nccl_s)
+    log(f"flash_decode_shards: qwen2.5-14b, {layers} layers, bf16, B {B}, S "
+        f"{S} under the world-1 mesh: logits bit-identical to the plain "
+        f"decode; {mesh_s:.3f} s against {plain_s:.3f} s (NCCL's groups "
+        f"made before, in {nccl_s:.3f} s); launches {launches}")
+    return res
+
+
+def mesh_phases(dev, seed, attn) -> dict:
+    """The mesh slice on the world-1 NCCL group: ``mesh_train:gemma3-1b``
+    and ``flash_decode_shards``, each timed."""
+    start_world1()
+    out = {}
+    try:
+        for name, fn in (("mesh_train:gemma3-1b",
+                          lambda: mesh_train_phase(dev, seed)),
+                         ("flash_decode_shards",
+                          lambda: flash_decode_phase(dev, seed, attn))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["phase_s"] = time.perf_counter() - t0
+    finally:
+        stop_world1()
+    return out
+
+
 REPLACES = {
     "probe_allocate": "src/repro/kernels/probe_allocate.py:167",
     "cache_probe": "src/repro/kernels/cache_probe.py:75",
@@ -3199,7 +3532,7 @@ def kernel_entry(name, r, launches):
              "library_ms": r.get("library_ms")}
     for key in ("device_ms", "host_us", "floor_ms", "variant",
                 "ms_spread", "library_ms_spread", "library", "variants",
-                "variant_launches"):
+                "variant_launches", "lse_ms", "lse_max_abs_err"):
         if key in r:        # device time, host time a call, fixed cost;
             entry[key] = r[key]    # flash: the kernel that was timed; the
     return entry                   # backward: spreads, each variant's times
@@ -3295,6 +3628,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     training = train_phases(dev, args.seed, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phases(dev, args.seed, attn)
+    training["mesh_train:gemma3-1b"] = mesh["mesh_train:gemma3-1b"]
+    fds = mesh["flash_decode_shards"]
+    kres["paged_attention"].update(
+        lse_ms=fds["lse_ms"],
+        lse_max_abs_err=max(fds["lse_errs"].values()))
 
     launches = dict(sres["launches"])
     # the attention kernels' launches on each model path (every path
@@ -3313,6 +3654,9 @@ def main() -> int:
     path_launches["flash_attention"].update(
         {k + ":patches": r["patch_forward_launches"]["flash_attention"]
          for k, r in models.items() if "patch_forward_launches" in r})
+    # shard-local flash-decoding under the mesh: every launch the lse one
+    path_launches["paged_attention"]["flash_decode_shards"] = \
+        fds["decode_launches"]["paged_attention"]
     # the training paths: forward (and remat's recompute) and backward
     for name in ("flash_attention", "flash_attention_bwd"):
         path_launches.setdefault(name, {}).update(
@@ -3325,6 +3669,9 @@ def main() -> int:
                for r in training.values())
     kres["flash_attention_bwd"]["variant_launches"] = {
         "simt": simt, "tc": launches["flash_attention_bwd"] - simt}
+    lse = fds["decode_launches"]["paged_attention.lse"]
+    kres["paged_attention"]["variant_launches"] = {
+        "out": launches["paged_attention"] - lse, "lse": lse}
     kernels = [kernel_entry(name, kres[name], launches[name])
                for name in REPLACES]
     phases = dict(sres["phase_launches"], **taxi["phase_launches"],
@@ -3348,7 +3695,8 @@ def main() -> int:
         build_s=t_build, build_log=build.build_log, hgmma=hgmma,
         kernels=kres,
         slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
-        runtime=runtime, **models, training=training, total_s=total_s),
+        runtime=runtime, **models, training=training,
+        flash_decode_shards=fds, total_s=total_s),
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

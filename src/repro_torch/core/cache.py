@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops as _ops
-from repro_torch.utils import mix_hash, segment_rank
+from repro_torch.utils import mix_hash, resolve_device, segment_rank
 
 __all__ = [
     "CacheState", "make_cache", "probe", "allocate", "probe_allocate",
@@ -48,7 +48,10 @@ class CacheState:
 
 
 def make_cache(num_sets: int, ways: int, line_elems: int,
-               dtype=torch.float32, device="cpu") -> CacheState:
+               dtype=torch.float32, device=None) -> CacheState:
+    """An empty directory and line store on ``device`` (CUDA unless the
+    caller asks for another)."""
+    device = resolve_device(device)
     def d2(fill, dt):
         return torch.full((num_sets, ways), fill, dtype=dt, device=device)
 

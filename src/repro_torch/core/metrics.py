@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.utils import resolve_device
+
 F64 = torch.float64
 
 
@@ -48,7 +50,11 @@ class IOMetrics:
     dev_max_depth: torch.Tensor     # (n_devices,) int32 in-flight watermark
 
     @staticmethod
-    def zeros(n_devices: int = 1, device="cpu") -> "IOMetrics":
+    def zeros(n_devices: int = 1, device=None) -> "IOMetrics":
+        """Zero counters on ``device`` (CUDA unless the caller asks for
+        another)."""
+        device = resolve_device(device)
+
         def f():
             return torch.zeros((), dtype=F64, device=device)
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.ssd import _alive_devices
 from repro_torch.kernels import ops as _ops
+from repro_torch.utils import resolve_device
 
 __all__ = ["QueueState", "make_queues", "enqueue", "enqueue_segments",
            "service_all", "drain_accounting", "Completions",
@@ -70,7 +71,9 @@ class QueueState:
 def make_queues(num_queues: int, depth: int, n_devices: int = 1,
                 stripe_blocks: int = 1, n_tenants: int = 1,
                 tenant_weights: tuple | None = None,
-                failed_devices=(), device="cpu") -> QueueState:
+                failed_devices=(), device=None) -> QueueState:
+    """Empty SQ rings and counters on ``device`` (CUDA unless the caller
+    asks for another)."""
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     if stripe_blocks < 1:
@@ -93,6 +96,7 @@ def make_queues(num_queues: int, depth: int, n_devices: int = 1,
     if failed_devices:
         _alive_devices(n_devices, failed_devices)   # range / all-dead check
     failed_devices = tuple(sorted({int(d) for d in failed_devices}))
+    device = resolve_device(device)
 
     def ring(fill, dt=torch.int32):
         return torch.full((num_queues, depth), fill, dtype=dt, device=device)

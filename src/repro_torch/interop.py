@@ -351,6 +351,61 @@ def reference_paths(model: nn.Module) -> dict:
     return {names[id(param)]: path for path, param in _tree_pairs(model)}
 
 
+# The reference's logical axes of each parameter (``init_dense``,
+# ``init_norm``, ``init_attention``, ``init_mlp``, ``init_moe``,
+# ``init_embedding``, ``init_mamba``, the xLSTM blocks), keyed by the last
+# names of its path.  A dense layer's weight is ``(parent, "w")`` and its
+# bias ``(parent, "b")``, the bias taking the weight's last axis.
+_DENSE_AXES = {
+    "wq": ("w_embed", "heads"), "wk": ("w_embed", "kv_heads"),
+    "wv": ("w_embed", "kv_heads"), "wo": ("heads", "w_embed"),
+    "w1": ("w_embed", "ffn"), "w2": ("ffn", "w_embed"),
+    "w3": ("w_embed", "ffn"), "head": ("w_embed", "vocab"),
+    "w_up": ("w_embed", "w_inner"), "w_in": ("w_embed", "w_inner"),
+    "w_if": ("w_inner", None), "w_down": ("w_inner", "w_embed"),
+}
+_GROUP_AXES = {
+    "moe": {"router": ("w_embed", None), "w1": ("experts", "w_embed", None),
+            "w2": ("experts", None, "w_embed"),
+            "w3": ("experts", "w_embed", None)},
+    "mamba": {"w_in": ("w_embed", "w_inner"), "conv": ("conv", "w_inner"),
+              "w_bc": ("w_inner", None), "w_dt": ("w_inner", None),
+              "dt_bias": ("w_inner",), "a_log": ("w_inner", None),
+              "d_skip": ("w_inner",), "w_out": ("w_inner", "w_embed")},
+}
+_LEAF_AXES = {
+    "table": ("vocab", "w_embed"), "meta": (None, "w_embed"),
+    "pos": (None, "w_embed"), "enc_pos": ("enc_seq", "w_embed"),
+    "q_norm": ("head_dim",), "k_norm": ("head_dim",),
+    "scale": ("act_embed",), "bias": ("act_embed",),
+    "n_attn": ("act_embed",), "n_ssm": ("act_embed",),
+    # the mLSTM's block-diagonal q/k/v, its output norm; the sLSTM's r
+    "wq": ("w_inner", None, None), "wk": ("w_inner", None, None),
+    "wv": ("w_inner", None, None), "hn": (None,),
+    "r": (None, "state_head", None, None),
+}
+
+
+def _path_axes(path) -> tuple:
+    *pre, last = path
+    parent = pre[-1] if pre else None
+    if last in ("w", "b") and parent in _DENSE_AXES:
+        w = _DENSE_AXES[parent]
+        return w if last == "w" else (w[-1],)
+    if parent in _GROUP_AXES:
+        return _GROUP_AXES[parent][last]
+    return _LEAF_AXES[last]
+
+
+def param_axes(model: nn.Module) -> dict:
+    """The port's parameter names -> the reference's logical axes of the
+    same leaf (``api.init``'s axes tree), without the leading ``None`` of
+    the layer axis that the reference's stacked blocks carry: the axes of
+    each parameter as the port holds it, one tensor a layer."""
+    return {name: _path_axes(path)
+            for name, path in reference_paths(model).items()}
+
+
 def reference_ndim(model: nn.Module) -> dict:
     """The port's parameter names -> the rank of the reference's leaf that
     holds them: one more than the parameter's own in a stacked group

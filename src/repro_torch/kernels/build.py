@@ -41,7 +41,7 @@ SIGNATURES = {
     "probe_allocate_launch": (
         [_P] * 10 + [_L, _L] + [_I] * 7 + [_P, _P, _L, _P]),
     "paged_attention_workspace_floats": [_I] * 5,
-    "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I] + [_P] * 3,
+    "paged_attention_launch": [_P] * 5 + [_I] * 7 + [_F, _I] + [_P] * 4,
     "flash_attention_launch": (
         [_P] * 3 + [_I] * 8 + [_L, _F, _I, _P, _P, _P]),
     "flash_attention_tc_launch": (

@@ -38,7 +38,12 @@
 //   live chunks in logical order: M = max m_i, l = sum l_i 2^(m_i - M),
 //   acc = sum acc_i 2^(m_i - M), out = acc / max(l, 1e-30).  Every weight
 //   is finite (ATTN_NEG_INF is finite), so an empty chunk adds 0, never
-//   NaN, and a row with no live key writes 0, as the reference.
+//   NaN, and a row with no live key writes 0, as the reference.  With a
+//   non-null lse it also writes each row's log-sum-exp of the scaled
+//   scores, (M + log2 l) ln 2, or -inf for a row with no live key, so that
+//   partial results over disjoint sets of pages (the shard-local
+//   flash-decoding of models/transformer.py) combine exactly: weight each
+//   by exp(lse - max lse), which is 0 for a shard with no live key.
 // Every sum runs in a fixed order over logical positions and no atomic
 // decides one, so the result does not depend on which physical page holds
 // a logical page, and two runs agree bit for bit.
@@ -255,7 +260,8 @@ template <typename T>
 __global__ void __launch_bounds__(PA_THREADS) paged_combine_kernel(
     const float* __restrict__ m_ws, const float* __restrict__ l_ws,
     const float* __restrict__ acc_ws, const int32_t* __restrict__ seq_lens,
-    int Hq, int D, int NP, int page, int NC, T* __restrict__ out) {
+    int Hq, int D, int NP, int page, int NC, T* __restrict__ out,
+    float* __restrict__ lse) {
   const int hq = blockIdx.x, b = blockIdx.y;
   const int len = min(seq_lens[b], NP * page);
   const int nc = len > 0 ? min(NC, (len + PA_CH - 1) / PA_CH) : 0;
@@ -270,6 +276,8 @@ __global__ void __launch_bounds__(PA_THREADS) paged_combine_kernel(
 #pragma unroll 8
   for (int c = 0; c < nc; ++c) lsum += l[c] * exp2f(m[c] - M);
   const float denom = fmaxf(lsum, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = lsum > 0.f ? (M + log2f(lsum)) * 0.6931471805599453f : -INFINITY;
   for (int d = threadIdx.x; d < D; d += PA_THREADS) {
     float a = 0.f;
 #pragma unroll 8
@@ -283,7 +291,7 @@ template <typename T, int GB>
 int launch_g(const void* q, const void* kp, const void* vp, const void* pt,
              const void* sl, int B, int P, int page, int Hkv, int D, int G,
              int NP, float scale, float* m_ws, float* l_ws, float* acc_ws,
-             void* out, cudaStream_t st) {
+             void* out, float* lse, cudaStream_t st) {
   const int NC = (NP * page + PA_CH - 1) / PA_CH;
   const int nsplit = PA_THREADS / (D / 4);
   const int ring_bytes = max(PA_STAGES * PA_TP * (D * (int)sizeof(T) + 16),
@@ -304,7 +312,7 @@ int launch_g(const void* q, const void* kp, const void* vp, const void* pt,
   }
   paged_combine_kernel<T><<<dim3(Hkv * G, B), PA_THREADS, 0, st>>>(
       m_ws, l_ws, acc_ws, static_cast<const int32_t*>(sl), Hkv * G, D, NP,
-      page, NC, static_cast<T*>(out));
+      page, NC, static_cast<T*>(out), lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,10 +320,10 @@ template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* pt,
            const void* sl, int B, int P, int page, int Hkv, int D, int G,
            int NP, float scale, float* m_ws, float* l_ws, float* acc_ws,
-           void* out, cudaStream_t st) {
+           void* out, float* lse, cudaStream_t st) {
 #define PA_LAUNCH(GB)                                                      \
   return launch_g<T, GB>(q, kp, vp, pt, sl, B, P, page, Hkv, D, G, NP,     \
-                         scale, m_ws, l_ws, acc_ws, out, st)
+                         scale, m_ws, l_ws, acc_ws, out, lse, st)
   if (G <= 2) PA_LAUNCH(2);
   if (G <= 4) PA_LAUNCH(4);
   if (G <= 5) PA_LAUNCH(5);
@@ -338,14 +346,15 @@ extern "C" int64_t paged_attention_workspace_floats(int B, int Hq, int NP,
 
 // D must be a multiple of 8 and at most 256, G at most 16, every tensor
 // 16-byte aligned, and ws a workspace of paged_attention_workspace_floats
-// floats.  is_bf16 selects bf16 over f32.
+// floats.  is_bf16 selects bf16 over f32.  lse, when not null, receives
+// the (B, Hq) f32 log-sum-exp of each row.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
                                       const void* seq_lens, int B, int P,
                                       int page, int Hkv, int D, int G, int NP,
                                       float scale, int is_bf16, void* ws,
-                                      void* out, void* stream) {
+                                      void* out, void* lse, void* stream) {
   if (D % 8 != 0 || D > PA_DMAX || G > PA_GMAX || G < 1 || page < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hkv == 0) return static_cast<int>(cudaGetLastError());
@@ -354,10 +363,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   float* m = static_cast<float*>(ws);
   float* l = m + rows;
   float* a = l + rows;
+  float* lse_f = static_cast<float*>(lse);
   return is_bf16 ? launch<__nv_bfloat16>(q, k_pages, v_pages, page_table,
                                          seq_lens, B, P, page, Hkv, D, G, NP,
-                                         scale, m, l, a, out, st)
+                                         scale, m, l, a, out, lse_f, st)
                  : launch<float>(q, k_pages, v_pages, page_table, seq_lens, B,
                                  P, page, Hkv, D, G, NP, scale, m, l, a, out,
-                                 st);
+                                 lse_f, st);
 }

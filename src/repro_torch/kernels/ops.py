@@ -94,11 +94,17 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     return fn(q, k, v, causal=causal, window=window)
 
 
-def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
+                    return_lse=False):
     """One-token attention over a paged KV pool: q (B, Hq, D), pools
-    (B, P, page, Hkv, D), page_table (B, NP) with -1 holes, seq_lens (B,)."""
-    fn = _ref.paged_attention_ref if _on(q) == "cpu" else paged_attention_cuda
-    return fn(q, k_pages, v_pages, page_table, seq_lens)
+    (B, P, page, Hkv, D), page_table (B, NP) with -1 holes, seq_lens (B,);
+    with ``return_lse`` also each row's f32 log-sum-exp (B, Hq)."""
+    if _on(q) == "cpu":
+        return (_ref.paged_attention_lse_ref if return_lse
+                else _ref.paged_attention_ref)(q, k_pages, v_pages,
+                                               page_table, seq_lens)
+    return paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                                return_lse=return_lse)
 
 
 sq_enqueue = _ref.sq_enqueue_ref

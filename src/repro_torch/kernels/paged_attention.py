@@ -4,7 +4,10 @@ partial kernel per chunk of 128 logical positions, then a combine in
 logical order, both launched by one C entry on one stream; the C side owns
 the chunk size and the workspace's layout).  The CPU emulation of that
 split, ``paged_attention_chunked_ref``, is held against the JAX package by
-the tests."""
+the tests.  With ``return_lse`` the combine also writes each row's f32
+log-sum-exp (``paged_attention_lse_ref``), which the shard-local
+flash-decoding uses to combine shards; ``lse_launches`` counts those
+calls (``launches`` counts every call)."""
 from __future__ import annotations
 
 import math
@@ -12,11 +15,14 @@ import math
 import torch
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import (paged_attention_lse_ref,
+                                     paged_attention_ref)
 
-__all__ = ["paged_attention_cuda", "paged_attention_ref", "launches"]
+__all__ = ["launches", "lse_launches", "paged_attention_cuda",
+           "paged_attention_lse_ref", "paged_attention_ref"]
 
 launches = _build.LaunchCount("paged_attention")
+lse_launches = _build.LaunchCount("paged_attention.lse")
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -27,11 +33,14 @@ def _aligned(*ts) -> bool:
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
-                         seq_lens: torch.Tensor) -> torch.Tensor:
+                         seq_lens: torch.Tensor, *,
+                         return_lse: bool = False):
     """One-token attention (scale 1/sqrt(D)) over a paged pool on CUDA
     tensors.  q: (B, Hq, D);
     pools (B, P, page, Hkv, D); page_table (B, NP) int32 (-1 a hole);
-    seq_lens (B,) int32.  Returns (B, Hq, D) in q's dtype."""
+    seq_lens (B,) int32.  Returns (B, Hq, D) in q's dtype, and with
+    ``return_lse`` also each row's f32 log-sum-exp (B, Hq), -inf where no
+    key is live."""
     if q.device.type != "cuda":
         raise ValueError("paged_attention_cuda needs CUDA tensors")
     ts = (q, k_pages, v_pages, page_table, seq_lens)
@@ -57,6 +66,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_attention: needs Hq a multiple of Hkv, "
                          "Hq // Hkv <= 16, D a multiple of 8 and D <= 256")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.lib()
     # f32 workspace for the per-chunk partials, laid out by the C entry
     ws = torch.empty((lib.paged_attention_workspace_floats(B, Hq, NP, page,
@@ -66,7 +77,11 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), B, P, page, Hkv, D,
         Hq // Hkv, NP, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
-        ws.data_ptr(), out.data_ptr(), _build.stream_ptr(q))
+        ws.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+        _build.stream_ptr(q))
     _build.check(status, "paged_attention")
     launches.n += 1
+    if return_lse:
+        lse_launches.n += 1
+        return out, lse
     return out

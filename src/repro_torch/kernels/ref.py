@@ -181,6 +181,31 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
+def paged_attention_lse_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, page_table: torch.Tensor,
+                            seq_lens: torch.Tensor):
+    """:func:`paged_attention_ref`'s output and each row's log-sum-exp of
+    the scaled live scores, ``m + log(l)`` (m the largest, l the sum of
+    exp(s - m)), f32 (B, Hq); -inf for a row with no live key."""
+    B, Hq, D = q.shape
+    page, Hkv = k_pages.shape[2], k_pages.shape[3]
+    NP = page_table.shape[1]
+    safe = torch.clamp(page_table, min=0).long()
+    bidx = torch.arange(B, device=q.device)[:, None]
+    S = NP * page
+    k = k_pages[bidx, safe].permute(0, 3, 1, 2, 4).reshape(B, Hkv, S, D)
+    k = k.repeat_interleave(Hq // Hkv, dim=1).float()
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k) / math.sqrt(D)
+    pos = torch.arange(S, device=q.device)[None, :]
+    hole = (page_table < 0).repeat_interleave(page, dim=1)
+    live = ((pos < seq_lens[:, None]) & ~hole)[:, None]         # (B, 1, S)
+    m = torch.where(live, s, NEG_INF).amax(-1)
+    l = torch.where(live, torch.exp(s - m[..., None]), 0.0).sum(-1)
+    lse = torch.where(l > 0, m + torch.log(l), -math.inf)
+    return paged_attention_ref(q, k_pages, v_pages, page_table,
+                               seq_lens), lse
+
+
 def paged_attention_chunked_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor,
                                 page_table: torch.Tensor,

@@ -35,9 +35,9 @@ class ModelApi:
 
 
 def family_module(cfg: ArchConfig):
-    """The module that implements ``cfg``'s family, and its model class;
-    raises for what is not ported (hymba's paged decode shares the
-    transformer's, ``flash_decode_shards`` included)."""
+    """The module that implements ``cfg``'s family, and its model class
+    (hymba's paged decode shares the transformer's, ``flash_decode_shards``
+    included)."""
     if cfg.family == "ssm":
         return xlstm, xlstm.XLSTMLM
     if cfg.family == "hybrid":

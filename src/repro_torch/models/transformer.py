@@ -19,9 +19,17 @@ axis and scans).  PyTorch runs eagerly, so ``decode_step`` writes the new
 token's K/V into the pools and rings in place, where the reference returns
 new arrays: the returned cache shares those tensors with the one passed in.
 
-Not ported (``NotImplementedError``): ``flash_decode_shards``, the
-reference's ``shard_map`` flash-decoding over a device mesh, which waits
-for ``distributed/`` (``ROADMAP.md`` §1).
+With ``cfg.flash_decode_shards`` under an active mesh with a ``model`` axis
+(``repro_torch.distributed.sharding.activate``), the paged layers decode
+shard-locally, as the reference's ``_paged_attention_flash_decode``: each
+model rank holds ``P / n`` physical pages of every pool (``kv_pages ->
+model``; ``init_decode_cache`` makes the pools DTensors split on the page
+axis), only the rank that owns a token's page writes its K/V, each rank
+attends over its own pages through the paged kernel (the pages it does not
+own set to -1) and the ranks' partial results are combined by their
+log-sum-exp (:func:`combine_shards`: an all-reduce MAX and a SUM).  The
+batch stays whole on every model rank.  On the CPU the shard-local part is
+the paged kernel's plain version with its log-sum-exp.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils import Tagged
@@ -41,17 +50,10 @@ FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def check_supported(cfg: ArchConfig, families=FAMILIES) -> None:
-    """Raise for a family outside ``families`` and for the parts of the
-    reference's decode not ported yet."""
-    missing = []
+    """Raise for a family outside ``families``."""
     if cfg.family not in families:
-        missing.append(f"family {cfg.family!r}")
-    if cfg.flash_decode_shards:
-        missing.append("flash_decode_shards (shard_map over a mesh)")
-    if missing:
         raise NotImplementedError(
-            f"repro_torch does not port {', '.join(missing)} yet "
-            "(ROADMAP.md §1)")
+            f"family {cfg.family!r} is not one of {families}")
 
 
 class Block(nn.Module):
@@ -244,12 +246,105 @@ def _paged_spec(cfg: ArchConfig, B: int, max_seq: int, device) -> dict:
     n_pages = -(-max_seq // page)
     shape = (B, n_pages, page, cfg.n_kv_heads, cfg.hd)
     table = torch.arange(n_pages, dtype=torch.int32, device=device)
+    mesh = _flash_decode_mesh(cfg)
+
+    def pool():
+        t = torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+        if mesh is None:
+            return t
+        # kv_pages -> model: this rank keeps its P / n pages
+        return shd.shard(t, shd.NamedSharding(mesh, POOL_SPEC))
+
     return {
-        "k_pages": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v_pages": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "k_pages": pool(),
+        "v_pages": pool(),
         # identity mapping at init; the indirection is the BaM page table
         "page_table": table[None].repeat(B, 1),
     }
+
+
+POOL_SPEC = (None, "model", None, None, None)   # (B, P, page, Hkv, D)
+
+
+def _flash_decode_mesh(cfg: ArchConfig):
+    """The active mesh when paged decode runs shard-locally on it
+    (``flash_decode_shards`` and a ``model`` axis), else None."""
+    mesh = shd.current_mesh()
+    if cfg.flash_decode_shards and mesh is not None \
+            and "model" in (mesh.mesh_dim_names or ()):
+        return mesh
+    return None
+
+
+def _local_pool(pool: torch.Tensor, mesh):
+    """This model rank's pages of a pool (a DTensor split as ``POOL_SPEC``,
+    as ``init_decode_cache`` makes it under the mesh) and the first one's
+    global index."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(pool, DTensor) or shd.spec_of(pool) != POOL_SPEC:
+        raise ValueError(
+            f"flash_decode_shards takes pools split as {POOL_SPEC}, not "
+            f"{shd.spec_of(pool) if isinstance(pool, DTensor) else 'whole'}"
+            ": make the cache with init_decode_cache under the mesh")
+    loc = pool.to_local()
+    return loc, mesh.get_local_rank("model") * loc.shape[1]
+
+
+def combine_shards(o: torch.Tensor, lse: torch.Tensor, reduce_max,
+                   reduce_sum) -> torch.Tensor:
+    """Combine partial attention outputs ``o`` (B, Hq, D) over disjoint
+    sets of keys by their log-sum-exp ``lse`` (B, Hq; -inf where a part has
+    no live key): with M the largest lse (``reduce_max``) each part weighs
+    ``w = exp(lse - M)``, and ``out = sum w o / max(sum w, 1e-30)`` in
+    f32, cast to o's dtype; the two sums are one ``reduce_sum`` of
+    ``[w o, w]``.  A part with no live key weighs 0, and a row with none
+    anywhere gives 0.  The reductions are all-reduces over the model ranks,
+    or reductions over a stacked leading axis when emulating the shards on
+    one device."""
+    M = reduce_max(lse)
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    w = torch.exp(lse - M)[..., None]
+    acc = reduce_sum(torch.cat([o.float() * w, w], -1))
+    return (acc[..., :-1] / torch.clamp(acc[..., -1:], min=1e-30)).to(o.dtype)
+
+
+def _paged_attention_flash_decode(cfg: ArchConfig, q: torch.Tensor,
+                                  k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  seq_lens: torch.Tensor, mesh):
+    """Shard-local flash-decoding over the model-striped page pool: each
+    model rank attends over the physical pages it owns and the partial
+    softmax states are combined over the ``model`` axis.  q (B, Hq, D);
+    pools DTensors split on the page axis; page_table (B, NP) global
+    physical pages, -1 a hole; seq_lens (B,).  Returns (B, Hq, D) in q's
+    dtype, the same on every model rank.  Each rank runs
+    ``ops.paged_attention`` with its log-sum-exp (on CUDA the hand-written
+    paged kernel) over its own pages, the others -1, and
+    :func:`combine_shards` joins the ranks by all-reduces.  Collective
+    payload per step: O(B x Hq x D), not O(pool)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group("model")
+    kp, base = _local_pool(k_pages, mesh)
+    vp, _ = _local_pool(v_pages, mesh)
+    p_loc = kp.shape[1]
+    mine = (page_table >= base) & (page_table < base + p_loc)   # (B, NP)
+
+    def reduce(op):
+        def f(t):
+            t = t.clone()
+            dist.all_reduce(t, op=op, group=group)
+            return t
+        return f
+
+    pt = torch.where(mine, page_table - base, -1).to(torch.int32)
+    o, lse = ops.paged_attention(q.contiguous(), kp.contiguous(),
+                                 vp.contiguous(), pt, seq_lens,
+                                 return_lse=True)
+    return combine_shards(o, lse, reduce(dist.ReduceOp.MAX),
+                          reduce(dist.ReduceOp.SUM))
 
 
 def init_decode_cache(cfg: ArchConfig, B: int, max_seq: int, device) -> dict:
@@ -340,11 +435,25 @@ def _decode_attn_paged(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
     # a hole (-1) at the token's logical page writes into physical page 0,
     # exactly as the reference's max(page_table, 0)
     ppage = page_table[bidx, posl // page].clamp(min=0).long()
-    k_pages[bidx, ppage, posl % page] = k[:, :, 0]
-    v_pages[bidx, ppage, posl % page] = v[:, :, 0]
-
-    o = ops.paged_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
-                            page_table, pos + 1)              # (B, Hq, hd)
+    mesh = _flash_decode_mesh(cfg)
+    if mesh is None:
+        k_pages[bidx, ppage, posl % page] = k[:, :, 0]
+        v_pages[bidx, ppage, posl % page] = v[:, :, 0]
+        o = ops.paged_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
+                                page_table, pos + 1)          # (B, Hq, hd)
+    else:
+        # only the rank that owns the token's physical page writes it; the
+        # other rows write back what their (clamped) slot holds, so no
+        # count of owned rows has to reach the host
+        kp, base = _local_pool(k_pages, mesh)
+        vp, _ = _local_pool(v_pages, mesh)
+        p_loc = kp.shape[1]
+        own = ((ppage >= base) & (ppage < base + p_loc))[:, None, None]
+        lp, slot = (ppage - base).clamp(0, p_loc - 1), posl % page
+        kp[bidx, lp, slot] = torch.where(own, k[:, :, 0], kp[bidx, lp, slot])
+        vp[bidx, lp, slot] = torch.where(own, v[:, :, 0], vp[bidx, lp, slot])
+        o = _paged_attention_flash_decode(cfg, q[:, :, 0], k_pages, v_pages,
+                                          page_table, pos + 1, mesh)
     o = o.reshape(B, 1, cfg.n_heads * hd)
     out = L.dense(p.wo, o.to(dtype), dtype)
     return out, {"k_pages": k_pages, "v_pages": v_pages,

@@ -169,7 +169,9 @@ class PagedKVManager:
         default_factory=lambda: ArrayOfSSDs(INTEL_OPTANE_P5800X, 1))
     keep_last: int = 4096            # hot window kept resident
     store: dict = dataclasses.field(default_factory=dict)
-    metrics: IOMetrics = dataclasses.field(default_factory=IOMetrics.zeros)
+    # host-side counters of the host tier, as the page store itself
+    metrics: IOMetrics = dataclasses.field(
+        default_factory=lambda: IOMetrics.zeros(device="cpu"))
     page_bytes: int = 0
     deferred: bool = False           # defer the device-time charge to drain()
     pending_spills: int = 0          # pages moved but not yet time-charged

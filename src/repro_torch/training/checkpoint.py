@@ -22,8 +22,14 @@ leading layer axis), then flattened as JAX flattens a pytree (a dict by
 sorted key, a tuple or list in order), so ``opt`` (``ef``, ``mu``, ``nu``,
 ``step``) comes before ``params``.  A checkpoint written by either package
 restores in the other.  The reference records its tree structure and
-ignores it at restore; the port writes ``null`` there.  The sharded
-restore of the reference (``shardings``) waits for ``distributed/``.
+ignores it at restore; the port writes ``null`` there.
+
+A sharded state (a mesh train step's: DTensor parameters and moments) is
+gathered before it is written, and only rank 0 of the process group writes,
+while the others wait at a barrier, so every rank calls
+:func:`save_checkpoint`.  :func:`restore_checkpoint` with ``shardings``
+(``train_loop.state_shardings`` for any mesh, the one it was saved from or
+another) reads each full array and keeps this rank's slice.
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import interop
+from repro_torch.distributed import sharding as shd
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "list_steps"]
@@ -48,21 +56,45 @@ def _is_train_state(state) -> bool:
         and isinstance(state.get("params"), nn.Module) and "opt" in state
 
 
+def _gathered(tree):
+    """``tree`` with every DTensor gathered into its full tensor."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return shd.full(tree)
+
+
+def _is_sharded(state) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    if _is_train_state(state):
+        return any(isinstance(p, DTensor)
+                   for p in state["params"].parameters())
+    if isinstance(state, dict):
+        return any(_is_sharded(v) for v in state.values())
+    if isinstance(state, (tuple, list)):
+        return any(_is_sharded(v) for v in state)
+    return isinstance(state, DTensor)
+
+
+@torch.no_grad()
 def _reference_tree(state):
-    """``state`` as the reference's pytree of numpy arrays."""
+    """``state`` as the reference's pytree of numpy arrays (DTensors
+    gathered: a collective every rank of their mesh joins)."""
     if _is_train_state(state):
         model = state["params"]
         out = {k: _reference_tree(v) for k, v in state.items()
                if k not in ("params", "opt")}
-        out["params"] = interop.params_to_numpy(model)
-        out["opt"] = interop.opt_state_to_numpy(model, state["opt"])
+        out["params"] = interop.named_to_numpy(
+            model, {n: shd.full(p) for n, p in model.named_parameters()})
+        out["opt"] = interop.opt_state_to_numpy(model,
+                                                _gathered(state["opt"]))
         return out
     if isinstance(state, dict):
         return {k: _reference_tree(v) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return type(state)(_reference_tree(v) for v in state)
     if isinstance(state, torch.Tensor):
-        t = state.detach().cpu()
+        t = shd.full(state).detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return state if state is None else np.asarray(state)
 
@@ -87,36 +119,76 @@ def _unflatten(template, leaves):
     return None if template is None else next(leaves)
 
 
-def _to_port(template, tree):
+def _placed(t: torch.Tensor, sharding):
+    """``t`` (full) as ``sharding`` places it, or ``t`` itself with none."""
+    return t if sharding is None else shd.shard(t, sharding)
+
+
+@torch.no_grad()
+def _to_port(template, tree, shardings=None):
     """``tree`` (the reference's layout, numpy) as ``template``'s type: a
-    training state's model is loaded in place and its AdamW state rebuilt on
-    the model's device; tensors take the template's dtype and device."""
+    training state's model is loaded in place (with ``shardings``, each
+    parameter replaced by a DTensor of this rank's slice) and its AdamW
+    state rebuilt on the model's device; tensors take the template's dtype
+    and device."""
+    sh = shardings or {}
     if _is_train_state(template):
         model = template["params"]
-        interop.load_params_(model, tree["params"])
         dev = next(model.parameters()).device
-        out = {k: _to_port(template[k], tree[k]) for k in template
+        out = {k: _to_port(template[k], tree[k], sh.get(k)) for k in template
                if k not in ("params", "opt")}
+        if shardings is None:
+            interop.load_params_(model, tree["params"])
+        else:
+            full = interop.named_from_numpy(model, tree["params"], dev)
+            for name, p in list(model.named_parameters()):
+                mod, _, leaf = name.rpartition(".")
+                owner = model.get_submodule(mod) if mod else model
+                setattr(owner, leaf, nn.Parameter(
+                    _placed(full.pop(name).to(p.dtype),
+                            shardings["params"][name]),
+                    requires_grad=p.requires_grad))
         out["params"] = model
-        out["opt"] = interop.opt_state_from_numpy(model, tree["opt"], dev)
+        ostate = interop.opt_state_from_numpy(model, tree["opt"], dev)
+        osh = sh.get("opt") or {}
+        out["opt"] = {k: ({n: _placed(t, (osh.get(k) or {}).get(n))
+                           for n, t in v.items()} if isinstance(v, dict)
+                          else v) for k, v in ostate.items()}
         return out
     if isinstance(template, dict):
-        return {k: _to_port(v, tree[k]) for k, v in template.items()}
+        return {k: _to_port(v, tree[k], sh.get(k))
+                for k, v in template.items()}
     if isinstance(template, (tuple, list)):
-        return type(template)(_to_port(v, t) for v, t in zip(template, tree))
+        shs = shardings or [None] * len(template)
+        return type(template)(_to_port(v, t, s)
+                              for v, t, s in zip(template, tree, shs))
     if isinstance(template, torch.Tensor):
         a = np.asarray(tree, dtype=np.float32
                        if template.dtype == torch.bfloat16 else None)
-        return torch.from_numpy(np.array(a)).to(template.device,
-                                                template.dtype)
+        return _placed(torch.from_numpy(np.array(a)).to(template.device,
+                                                        template.dtype),
+                       shardings)
     return tree
 
 
 def save_checkpoint(ckpt_dir, step: int, state: Any, *,
                     extra: Optional[dict] = None, keep: int = 3) -> Path:
     """Atomically write ``state`` (a training state, or a tree of tensors
-    and arrays) for ``step``."""
+    and arrays) for ``step``.  A sharded state is gathered on every rank
+    (a collective) and written by rank 0 alone; the others wait at a
+    barrier until it is published."""
     ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    tree = _reference_tree(state)
+    if _is_sharded(state):
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, tree, extra, keep)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, tree, extra, keep)
+
+
+def _write(ckpt_dir: Path, step: int, tree, extra, keep: int) -> Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
@@ -125,7 +197,7 @@ def save_checkpoint(ckpt_dir, step: int, state: Any, *,
     tmp.mkdir(parents=True)
     meta = {"step": step, "treedef": None, "extra": extra or {},
             "leaves": []}
-    for i, leaf in enumerate(_flatten(_reference_tree(state))):
+    for i, leaf in enumerate(_flatten(tree)):
         arr = np.asarray(leaf)
         np.save(tmp / f"arr_{i:05d}.npy", arr)
         meta["leaves"].append({"file": f"arr_{i:05d}.npy",
@@ -177,10 +249,14 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir, template: Any, *,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None, shardings: Any = None):
     """Restore into the structure of ``template`` (the latest step unless
     ``step`` is given).  A training state's model is loaded in place.
-    Raises ``FileNotFoundError`` when there is no checkpoint and
+    ``shardings``: a matching tree of :class:`NamedSharding`
+    (``train_loop.state_shardings`` on any mesh): every leaf becomes a
+    DTensor of this rank's slice of the full array (elastic re-mesh: any
+    rank count works); a sharded template keeps its own when none is
+    given.  Raises ``FileNotFoundError`` when there is no checkpoint and
     ``ValueError`` when the leaf count or a shape differs from the
     template's, before anything is loaded.  Returns (state, step, extra)."""
     ckpt_dir = Path(ckpt_dir)
@@ -203,5 +279,8 @@ def restore_checkpoint(ckpt_dir, template: Any, *,
             raise ValueError(f"leaf {i}: shape {arr.shape} != template "
                              f"{np.shape(tleaf)}")
         out.append(arr.astype(np.asarray(tleaf).dtype))
-    state = _to_port(template, _unflatten(tree_t, iter(out)))
+    if shardings is None and _is_sharded(template):
+        raise ValueError("restoring into a sharded template needs its "
+                         "shardings (train_loop.state_shardings)")
+    state = _to_port(template, _unflatten(tree_t, iter(out)), shardings)
     return state, step, meta.get("extra", {})

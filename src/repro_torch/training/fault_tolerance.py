@@ -6,8 +6,10 @@ from a step (a device fault, an injected failure) restores ``LATEST`` and
 replays from there, up to ``max_restarts`` times; with no checkpoint it
 starts fresh.  The data is a pure function of the step index
 (``repro_torch.data.Loader.batch_for_step``), so a replay reads the same
-batches.  ``elastic_restore`` (restore onto another mesh) waits for
-``distributed/`` (ROADMAP.md §1).
+batches.  Under a mesh every rank runs the loop: ``shardings``
+(``train_loop.state_shardings``) lay out a restored state, and
+``elastic_restore`` restores a checkpoint onto another mesh than the one
+that wrote it.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Any, Callable, Optional
 
 from repro_torch.training import checkpoint as ckpt
 
-__all__ = ["FailureInjector", "run_training", "TrainRunResult"]
+__all__ = ["FailureInjector", "TrainRunResult", "elastic_restore",
+           "run_training"]
 
 log = logging.getLogger(__name__)
 
@@ -57,12 +60,13 @@ def run_training(
     max_restarts: int = 3,
     failure_injector: Optional[FailureInjector] = None,
     on_metrics: Optional[Callable] = None,
+    shardings: Any = None,
 ) -> TrainRunResult:
     """The fault-tolerant step loop: run, checkpoint, crash, restore,
     resume.  Each step's metrics are read back as floats (a host sync a
     step) into the history; ``on_metrics(step, metrics)`` sees them after
     each step.  Ends with a checkpoint of the last step when ``ckpt_dir``
-    is set."""
+    is set.  ``shardings`` go to every restore."""
     restarts = 0
     history = []
 
@@ -71,7 +75,8 @@ def run_training(
 
     state, step = fresh()
     if ckpt_dir is not None and ckpt.latest_step(ckpt_dir) is not None:
-        state, step, _ = ckpt.restore_checkpoint(ckpt_dir, state)
+        state, step, _ = ckpt.restore_checkpoint(ckpt_dir, state,
+                                                 shardings=shardings)
 
     while step < n_steps:
         try:
@@ -94,8 +99,18 @@ def run_training(
                 state = None            # free it before the fresh one is made
                 state, step = fresh()
             else:
-                state, step, _ = ckpt.restore_checkpoint(ckpt_dir, state)
+                state, step, _ = ckpt.restore_checkpoint(
+                    ckpt_dir, state, shardings=shardings)
     if ckpt_dir is not None:
         ckpt.save_checkpoint(ckpt_dir, step, state, keep=keep)
     return TrainRunResult(state=state, step=step, metrics_history=history,
                           restarts=restarts)
+
+
+def elastic_restore(ckpt_dir, template, make_shardings: Callable,
+                    mesh) -> Any:
+    """Restore a checkpoint onto a *different* mesh: shardings are computed
+    for the new mesh (``make_shardings(mesh)``) and every leaf is cut to
+    this rank's slice there.  Returns (state, step, extra)."""
+    return ckpt.restore_checkpoint(ckpt_dir, template,
+                                   shardings=make_shardings(mesh))

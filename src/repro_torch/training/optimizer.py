@@ -15,8 +15,12 @@ axis, so every norm scale and bias inside a block is decayed there, while
 ``ln_f`` and xLSTM's per-layer blocks' 1-D leaves are not
 (:func:`repro_torch.interop.reference_ndim`).
 
-``pod_compressed_mean`` (the int8 reduction over a ``pod`` mesh axis) waits
-for ``distributed/`` (ROADMAP.md §1).
+``pod_compressed_mean`` is the cross-pod gradient mean of the
+pod-compressed train step: int8 values with one shared f32 scale a tensor
+on the wire, summed exactly in int32 over the ``pod`` axis of a mesh, and
+an error-feedback residual that carries each pod's quantisation error into
+its next step.  ``adamw_apply`` is the update on given tensors (a sharded
+step's local shards) with the gradient norm given.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ from torch import nn
 
 from repro_torch.interop import reference_ndim
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
-           "decay_mask", "global_norm", "quantize_int8"]
+__all__ = ["AdamWConfig", "adamw_apply", "adamw_init", "adamw_update",
+           "cosine_schedule", "decay_mask", "global_norm",
+           "pod_compressed_mean", "quantize_int8"]
 
 
 # --------------------------------------------------------------- schedule ---
@@ -99,6 +104,41 @@ def quantize_int8(x: torch.Tensor):
 
 
 @torch.no_grad()
+def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
+                        mesh=None):
+    """int8 error-feedback mean over the ``axis`` ranks of ``mesh``
+    (default: the active mesh).  ``grads`` and ``ef`` are dicts of tensors
+    keyed alike (the gradient and residual of this rank's pod); returns
+    ``(mean, ef')`` keyed the same, each tensor of ``mean`` equal on every
+    rank of the axis.  Per tensor, in the reference's order: ``gf = g + e``
+    in f32; ``scale`` the largest of the ranks' ``max(|gf|, 1e-12) / 127``
+    (an all-reduce MAX); ``q = round(gf / scale)`` (half to even) clipped
+    to +-127 as int8; ``q_sum`` its int32 SUM; ``mean = q_sum * scale / n``
+    in the gradient's dtype; ``e' = gf - q * scale``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import current_mesh
+
+    mesh = mesh or current_mesh()
+    group = mesh.get_group(axis)
+    n = torch.tensor(float(dist.get_world_size(group)))
+    mean, ef2 = {}, {}
+    for name, g in grads.items():
+        gf = g.float() + ef[name]
+        # shared scale: one tiny max-reduce, then exact int32 accumulation
+        scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        # wire bytes: int8 payload (+ one f32 scale per tensor); gloo and
+        # NCCL sum in int32 here, which the int8 range cannot overflow
+        q_sum = q.to(torch.int32)
+        dist.all_reduce(q_sum, group=group)
+        mean[name] = (q_sum.float() * scale / n.to(scale.device)).to(g.dtype)
+        ef2[name] = gf - q.float() * scale
+    return mean, ef2
+
+
+@torch.no_grad()
 def adamw_update(grads: dict, state: dict, model: nn.Module,
                  cfg: AdamWConfig, lr_fn: Optional[Callable] = None):
     """One AdamW step: the gradients clipped to ``clip_norm`` by their
@@ -106,9 +146,23 @@ def adamw_update(grads: dict, state: dict, model: nn.Module,
     on the masked parameters.  Updates ``model``'s parameters and the
     moments in place; returns ``(model, state', metrics)`` with
     ``grad_norm`` and ``lr``."""
+    state, metrics = adamw_apply(
+        grads, state, dict(model.named_parameters()), decay_mask(model),
+        global_norm(grads.values()), cfg, lr_fn)
+    return model, state, metrics
+
+
+@torch.no_grad()
+def adamw_apply(grads: dict, state: dict, params: dict, mask: dict,
+                gnorm: torch.Tensor, cfg: AdamWConfig,
+                lr_fn: Optional[Callable] = None):
+    """:func:`adamw_update`'s arithmetic on the tensors of ``params``
+    (name -> tensor, updated in place) with the gradient norm ``gnorm``
+    given: a sharded step passes each rank's local shards of the
+    parameters, gradients and moments, and the norm of the whole
+    gradients.  Returns ``(state', metrics)``."""
     lr_fn = lr_fn or cosine_schedule(cfg.lr, cfg.warmup, cfg.total_steps)
     step = state["step"] + 1
-    gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -116,8 +170,7 @@ def adamw_update(grads: dict, state: dict, model: nn.Module,
     mu_hat_scale = 1.0 / (1 - torch.pow(b1, t))
     nu_hat_scale = 1.0 / (1 - torch.pow(b2, t))
     lr = lr_fn(step)
-    mask = decay_mask(model)
-    for name, p in model.named_parameters():
+    for name, p in params.items():
         g = grads[name].float() * scale
         m, v = state["mu"][name], state["nu"][name]
         m.mul_(b1).add_((1 - b1) * g)
@@ -128,4 +181,4 @@ def adamw_update(grads: dict, state: dict, model: nn.Module,
         p.copy_((p.float() - lr * u).to(p.dtype))
     new_state = dict(state)
     new_state["step"] = step
-    return model, new_state, {"grad_norm": gnorm, "lr": lr}
+    return new_state, {"grad_norm": gnorm, "lr": lr}

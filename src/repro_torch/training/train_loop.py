@@ -1,29 +1,50 @@
-"""The train step: loss and gradients -> AdamW, with microbatch gradient
-accumulation.
+"""The train step: loss and gradients -> (optional pod-compressed
+reduction) -> AdamW, with microbatch gradient accumulation, on one device
+or over a ``DeviceMesh``.
 
-Port of ``repro.training.train_loop.make_train_step``'s plain step.  The
-state is ``{"params": model, "opt": adamw state}``; the step turns on
+Port of ``repro.training.train_loop``.  With no mesh the state is
+``{"params": model, "opt": adamw state}``; the step turns on
 ``requires_grad`` for the model's parameters (they are made without it),
 takes the gradients with ``torch.autograd.grad`` and updates the model and
-the moments in place (``optimizer.adamw_update``).
+the moments in place (``optimizer.adamw_update``).  With no mesh the
+reference takes the plain step whatever ``pod_compression`` says, and so
+does the port.
 
-Not ported here (ROADMAP.md §1, the ``distributed/`` slice): a mesh, the
-pod-compressed step (``pod_compressed_mean`` over a ``pod`` axis),
-``state_shardings`` and ``batch_shardings``.  With no mesh the reference
-takes the plain step whatever ``pod_compression`` says, and so does the
-port; a mesh raises.
+Under a mesh (``mesh=`` or the active one) the state is sharded
+(:func:`shard_state` with :func:`state_shardings`): the model's parameters
+and the moments are DTensors, each rank holding the slice the reference's
+``NamedSharding`` gives its mesh coordinate.  Each step gathers the
+parameters into a plain copy of the model that the kernels run on, takes
+the gradients of this rank's slice of the batch (dim 0 split over the mesh
+axes of ``batch``, :func:`batch_shardings`), and sums the loss, the
+metrics and the gradients over those axes, each slice weighted by its
+share of the loss tokens, which gives the reference's global mean; then
+AdamW updates the local shards, the gradient norm taken over the whole
+gradients.  Along ``model`` the compute is replicated, not tensor-parallel:
+every rank of a ``model`` group computes the same gradients.  With
+``pod_compression`` and a ``pod`` axis the step is the reference's
+``per_pod``: the exact weighted mean over ``data`` within a pod, then
+``pod_compressed_mean`` over ``pod`` for the gradients (``ef`` in the opt
+state, each pod its own residual), the loss and metrics averaged over
+``pod``.  MoE's auxiliary losses are nonlinear in the batch (the router's
+load statistics), so an MoE model with a batch axis larger than 1 raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import ModelApi, build_model
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.model import ModelApi, build_model, family_module
 from repro_torch.training import optimizer as opt
 
 TrainState = dict  # {"params": model, "opt": adamw state}
+
+__all__ = ["TrainState", "batch_shardings", "make_train_step",
+           "shard_state", "state_shardings"]
 
 
 def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
@@ -35,12 +56,10 @@ def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
     many slices, sums their gradients and divides, averages the loss and
     keeps the last slice's other metrics, as the reference's scan.
     Metrics are detached tensors: the loss's own (``nll`` and, for MoE,
-    ``load_balance`` and ``router_z``), ``loss``, ``grad_norm``, ``lr``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step with a mesh (pod-compressed reduction, "
-            "state and batch shardings) waits for the distributed/ slice "
-            "(ROADMAP.md §1)")
+    ``load_balance`` and ``router_z``), ``loss``, ``grad_norm``, ``lr``.
+    With a mesh (``mesh`` or the active one) the step takes a sharded
+    state and the global batch (the same on every rank) and returns the
+    sharded state, every rank the same metrics."""
     api = api or build_model(cfg)
     adamw = adamw or opt.AdamWConfig()
     lr_fn = opt.cosine_schedule(adamw.lr, adamw.warmup, adamw.total_steps)
@@ -82,4 +101,185 @@ def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
         metrics = dict(metrics, loss=loss, **om)
         return {"params": model, "opt": ostate}, metrics
 
+    mesh_ = mesh or shd.current_mesh()
+    if mesh_ is None:
+        return train_step
+    return _mesh_step(cfg, mesh_, compute_grads, adamw, lr_fn)
+
+
+def _loss_tokens(batch) -> float:
+    """The positions that carry loss in ``batch`` (the models' masked
+    mean): ``loss_mask``'s sum with ``labels``, else every position but the
+    last of each sequence (``layers.shifted_labels``)."""
+    if "labels" in batch:
+        m = batch.get("loss_mask")
+        return float(batch["labels"].numel() if m is None else m.sum())
+    B, S = batch["tokens"].shape
+    return float(B * (S - 1))
+
+
+def _plain_copy(cfg: ArchConfig, model: nn.Module) -> nn.Module:
+    """An empty plain model of ``model``'s class, shapes and dtypes (the
+    parameters uninitialised), on its device."""
+    _, cls = family_module(cfg)
+    p0 = next(model.parameters())
+    pos = getattr(model, "pos", None)
+    work = cls(cfg, max_seq=0 if pos is None else pos.table.shape[0],
+               device=p0.device)
+    want = {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
+    got = {n: (tuple(p.shape), p.dtype) for n, p in work.named_parameters()}
+    if want != got:
+        raise ValueError("the plain copy's parameters differ from the "
+                         "sharded model's")
+    return work.requires_grad_(True)
+
+
+def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    names = tuple(mesh.mesh_dim_names)
+    use_pod = adamw.pod_compression and "pod" in names
+    rules = shd.current_rules()
+    batch_rule = shd._as_tuple(rules.resolve("batch", mesh))
+    if cfg.moe and shd._axis_size(mesh, batch_rule) > 1:
+        raise NotImplementedError(
+            "MoE under a batch axis larger than 1: the router's load "
+            "statistics would need an all-reduce before the aux losses "
+            "(ROADMAP.md)")
+    work = {}
+
+    def split_axes(B: int) -> tuple:
+        """The mesh axes that split the batch's dim 0, slowest first."""
+        if use_pod:     # the reference's shard_map splits over pod first
+            n_pod = shd._size(mesh, "pod")
+            if B % n_pod:
+                raise ValueError(f"batch {B} does not split over "
+                                 f"{n_pod} pods")
+            rest = tuple(a for a in batch_rule if a != "pod")
+            return ("pod",) + (rest if rest and (B // n_pod)
+                               % shd._axis_size(mesh, rest) == 0 else ())
+        return shd._as_tuple(shd._spec_for_shape(
+            ("batch",), (B,), mesh, rules)[0])
+
+    def local_batch(batch, axes):
+        return {k: shd.local_slice(v, mesh, (axes or None,)
+                                   + (None,) * (v.ndim - 1))
+                for k, v in batch.items()}
+
+    def weighted_sum(tensors, w, axes):
+        """Each of ``tensors`` times ``w``, summed over the ranks of
+        ``axes`` (one all-reduce an axis, in mesh order)."""
+        out = [t * w for t in tensors]
+        for a in axes:
+            for t in out:
+                dist.all_reduce(t, group=mesh.get_group(a))
+        return out
+
+    def train_step(state: TrainState, batch):
+        model, ostate = state["params"], state["opt"]
+        if not isinstance(next(model.parameters()), DTensor):
+            raise ValueError("a mesh step takes a sharded state: lay it out "
+                             "with shard_state(state, state_shardings(...))")
+        if work.get("src") is not model:
+            work["src"], work["model"] = model, _plain_copy(cfg, model)
+        plain = work["model"]
+        wp = dict(plain.named_parameters())
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                wp[n].copy_(shd.full(p))
+        axes = split_axes(next(iter(batch.values())).shape[0])
+        part = local_batch(batch, axes)
+        loss, metrics, grads = compute_grads(plain, part)
+        # the reference's global mean: each slice weighted by its loss
+        # tokens; within a pod only over data when pods compress
+        data_axes = tuple(a for a in axes if not (use_pod and a == "pod"))
+        n_loc = torch.tensor(_loss_tokens(part), device=loss.device)
+        (n_all,) = weighted_sum([n_loc], 1.0, data_axes)
+        w = n_loc / n_all
+        keys = list(metrics)
+        vals = weighted_sum([loss] + [metrics[k] for k in keys]
+                            + list(grads.values()), w, data_axes)
+        loss, metrics = vals[0], dict(zip(keys, vals[1:1 + len(keys)]))
+        grads = dict(zip(grads, vals[1 + len(keys):]))
+        if use_pod:
+            ef = {n: shd.full(e) for n, e in ostate["ef"].items()}
+            grads, ef = opt.pod_compressed_mean(grads, ef, "pod", mesh)
+            with torch.no_grad():
+                for n, e in ostate["ef"].items():
+                    e.to_local().copy_(shd.local_slice(ef[n], mesh,
+                                                       shd.spec_of(e)))
+            n_pod = shd._size(mesh, "pod")
+            vals = weighted_sum([loss] + [metrics[k] for k in keys], 1.0,
+                                ("pod",))
+            loss = vals[0] / n_pod
+            metrics = {k: v / n_pod for k, v in zip(keys, vals[1:])}
+        gnorm = opt.global_norm(grads.values())
+        params = {n: p.to_local() for n, p in model.named_parameters()}
+        shards = {n: shd.local_slice(grads[n], mesh, shd.spec_of(p))
+                  for n, p in model.named_parameters()}
+        local = {"step": ostate["step"],
+                 "mu": {n: m.to_local() for n, m in ostate["mu"].items()},
+                 "nu": {n: v.to_local() for n, v in ostate["nu"].items()}}
+        local, om = opt.adamw_apply(shards, local, params,
+                                    opt.decay_mask(model), gnorm, adamw,
+                                    lr_fn)
+        ostate = dict(ostate, step=local["step"])
+        metrics = dict(metrics, loss=loss, **om)
+        return {"params": model, "opt": ostate}, metrics
+
     return train_step
+
+
+# ------------------------------------------------------- sharding helpers --
+def _shapes(params_shapes) -> dict:
+    if isinstance(params_shapes, nn.Module):
+        return dict(params_shapes.named_parameters())
+    return params_shapes
+
+
+def state_shardings(cfg: ArchConfig, axes, mesh, params_shapes,
+                    adamw: Optional[opt.AdamWConfig] = None):
+    """:class:`NamedSharding`s for ``{"params", "opt"}`` from the
+    parameters' logical axes (``interop.param_axes``) and shapes (a model,
+    or a dict of tensors keyed by parameter name): the moments (and
+    ``ef``) as their parameters, the step replicated."""
+    adamw = adamw or opt.AdamWConfig()
+    p_sh = shd.param_shardings(axes, mesh, shapes=_shapes(params_shapes))
+    rep = shd.NamedSharding(mesh, ())
+    o_sh = {"step": rep, "mu": p_sh, "nu": p_sh}
+    if adamw.pod_compression:
+        o_sh["ef"] = p_sh
+    return {"params": p_sh, "opt": o_sh}
+
+
+def batch_shardings(batch_specs, mesh):
+    """Shard every batch tensor's dim 0 over (pod, data), where they divide
+    it."""
+    def one(spec):
+        axes = ["batch"] + [None] * (len(spec.shape) - 1)
+        return shd.NamedSharding(
+            mesh, shd._spec_for_shape(axes, spec.shape, mesh,
+                                      shd.current_rules()))
+    return {k: one(v) for k, v in batch_specs.items()}
+
+
+@torch.no_grad()
+def shard_state(state: TrainState, shardings) -> TrainState:
+    """The plain training state (the same on every rank) laid out as
+    ``shardings`` (:func:`state_shardings`) says: the model's parameters
+    and the moments become DTensors holding this rank's slices (the model
+    changed in place), the step stays a plain tensor.  Sends nothing."""
+    model = state["params"]
+    for name, p in list(model.named_parameters()):
+        mod, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(mod) if mod else model
+        setattr(owner, leaf, nn.Parameter(
+            shd.shard(p.detach(), shardings["params"][name]),
+            requires_grad=p.requires_grad))
+    ostate = dict(state["opt"])
+    for key in ("mu", "nu", "ef"):
+        if key in ostate:
+            ostate[key] = {n: shd.shard(t, shardings["opt"][key][n])
+                           for n, t in ostate[key].items()}
+    return {"params": model, "opt": ostate}

@@ -17,6 +17,7 @@ from repro.core import queues as JQ
 from repro.core.coalescer import coalesce as jcoalesce
 from repro_torch import utils as tutils
 from repro_torch.core import cache as TC
+from repro_torch.core import metrics as TM
 from repro_torch.core import queues as TQ
 from repro_torch.core.coalescer import coalesce as tcoalesce
 from repro_torch.core.ssd import device_histogram
@@ -144,7 +145,7 @@ def test_cache_probe_allocate_and_bookkeeping(kw):
 
 
 def _queue_pair(nq, depth, nd):
-    return (TQ.make_queues(nq, depth, n_devices=nd),
+    return (TQ.make_queues(nq, depth, n_devices=nd, device="cpu"),
             JQ.make_queues(nq, depth, n_devices=nd))
 
 
@@ -275,3 +276,24 @@ def test_software_pipeline_matches_sequential():
     np.testing.assert_array_equal(mx.numpy(), np.asarray(jmx))
     with pytest.raises(ValueError):
         software_pipeline(None, compute, idx_seq, st, 0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: TC.make_cache(4, 2, 8, **kw),
+    lambda **kw: TQ.make_queues(4, 8, n_devices=2, **kw),
+    lambda **kw: TM.IOMetrics.zeros(2, **kw),
+], ids=["make_cache", "make_queues", "IOMetrics.zeros"])
+def test_constructors_default_to_cuda(make):
+    """Without ``device=`` the cache, the rings and the metrics go to CUDA,
+    as every entry point's state does; without a card that raises and
+    names the CPU way."""
+    t = make(device="cpu")
+    assert all(x.device.type == "cpu" for x in vars(t).values()
+               if isinstance(x, torch.Tensor))
+    if torch.cuda.is_available():
+        out = make()
+        assert all(x.is_cuda for x in vars(out).values()
+                   if isinstance(x, torch.Tensor))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

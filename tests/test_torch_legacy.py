@@ -189,7 +189,8 @@ def _rings(pkg, n_tenants, weights, failed=()):
         return JQ.make_queues(8, 8, n_devices=2, n_tenants=n_tenants,
                               tenant_weights=weights, failed_devices=failed)
     return TQ.make_queues(8, 8, n_devices=2, n_tenants=n_tenants,
-                          tenant_weights=weights, failed_devices=failed)
+                          tenant_weights=weights, failed_devices=failed,
+                          device="cpu")
 
 
 SERVICE_CASES = {
@@ -256,7 +257,7 @@ def _directory(pkg, seed=0):
         c = JC.make_cache(S, W, 4)
         return JC._replace_data(c, **{k: jnp.asarray(v) for k, v in
                                       d.items()})
-    c = TC.make_cache(S, W, 4)
+    c = TC.make_cache(S, W, 4, device="cpu")
     for k, v in d.items():
         getattr(c, k).copy_(torch.from_numpy(v))
     return c
@@ -315,7 +316,7 @@ def test_metrics_accumulate_and_sum():
     rng = np.random.default_rng(2)
 
     def pair():
-        t = TM.IOMetrics.zeros(2)
+        t = TM.IOMetrics.zeros(2, "cpu")
         kw = {}
         for f in dataclasses.fields(t):
             v = getattr(t, f.name)

@@ -139,19 +139,24 @@ def test_params_round_trip_and_model_api():
     ("hymba_1_5b", {}, "HymbaLM"),
     ("qwen2_5_14b", dict(family="ssm"), "XLSTMLM"),     # families now
     ("qwen2_5_14b", dict(family="hybrid"), "HymbaLM"),  # ported
-    ("qwen2_5_14b", dict(flash_decode_shards=True), None),  # still raises
+    ("qwen2_5_14b", dict(flash_decode_shards=True), "TransformerLM"),
 ])
 def test_unported_parts_raise(name, kw, cls):
-    """Every config and family builds the model of its family on the CPU;
-    ``flash_decode_shards`` still raises."""
+    """Every config and family builds the model of its family on the CPU,
+    ``flash_decode_shards`` included (ported with ``distributed/``; its
+    decode under a mesh is held in ``test_torch_distributed.py``); without
+    a mesh it decodes as the plain paged path."""
     cfg = smoke_config(name).replace(**kw)
-    if cls is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, "cpu")
-    else:
-        model = build_model(cfg, "cpu").init(0)
-        assert type(model).__name__ == cls
-        assert model.blocks[0].__class__.__module__ == (
-            "repro_torch.models.xlstm" if cfg.family == "ssm"
-            else "repro_torch.models.hymba")
+    model = build_model(cfg, "cpu").init(0)
+    assert type(model).__name__ == cls
+    assert model.blocks[0].__class__.__module__ == {
+        "ssm": "repro_torch.models.xlstm",
+        "hybrid": "repro_torch.models.hymba"}.get(
+            cfg.family, "repro_torch.models.transformer")
+    if cfg.flash_decode_shards:
+        tok = torch.tensor([[3, 5, 7]], dtype=torch.int32)
+        a, _ = T.prefill(cfg, model, {"tokens": tok}, 16)
+        b, _ = T.prefill(cfg.replace(flash_decode_shards=False), model,
+                         {"tokens": tok}, 16)
+        assert torch.equal(a, b)
     assert get_config("qwen2.5-14b").n_layers == 48

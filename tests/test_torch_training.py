@@ -341,9 +341,28 @@ def test_train_step_matches_jax(microbatches):
 
 
 def test_train_step_with_a_mesh_raises():
+    """A mesh step builds for a dense model; for MoE with a batch axis
+    larger than 1 it raises (its router statistics are not all-reduced
+    before the aux losses), with a batch axis of 1 it builds.
+    ``test_torch_distributed.py`` runs the mesh step."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = _port_cfg("gemma3_1b")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        make_train_step(cfg, build_model(cfg, "cpu"), mesh=object())
+    moe = _port_cfg("olmoe_1b_7b")
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0,
+                                         world_size=8)
+    try:
+        mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+        assert callable(make_train_step(cfg, build_model(cfg, "cpu"),
+                                        mesh=mesh))
+        with pytest.raises(NotImplementedError, match="MoE"):
+            make_train_step(moe, build_model(moe, "cpu"), mesh=mesh)
+        assert callable(make_train_step(
+            moe, build_model(moe, "cpu"),
+            mesh=make_mesh((1, 8), ("data", "model"), "cpu")))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", [
@@ -368,7 +387,8 @@ def test_launch_train_runs_on_the_cpu(tmp_path, capsys):
     """``launch/train`` end to end on the smoke config (a small corpus put
     in its workdir first): the flags, the f32 override, the loss line
     every 10 steps and a checkpoint at the end that a second run resumes
-    from; ``--mesh`` raises."""
+    from; ``--mesh`` raises unless its ranks are the process group's."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.data import synth_corpus
     from repro_torch.launch import train as launch_train
 
@@ -385,5 +405,11 @@ def test_launch_train_runs_on_the_cpu(tmp_path, capsys):
     assert (tmp_path / "ckpt" / "LATEST").read_text() == "10"
     again = launch_train.main(argv)               # resumes at step 10
     assert again.step == 10 and again.metrics_history == []
-    with pytest.raises(NotImplementedError, match="distributed"):
-        launch_train.main(argv + ["--mesh", "2x4"])
+    # --mesh needs D x M ranks (test_torch_distributed.py trains on 2x4)
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0,
+                                         world_size=4)
+    try:
+        with pytest.raises(ValueError, match="8 ranks"):
+            launch_train.main(argv + ["--mesh", "2x4"])
+    finally:
+        torch.distributed.destroy_process_group()

@@ -3,13 +3,16 @@
 
     python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
         [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
-        [--seed 0] [--profile]
+        [mesh_train:gemma3-1b] [flash_decode_shards] [--seed 0] [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
 against its plain version), ``attn_bwd`` the flash backward's (and the
 forward's log-sum-exp) against their plain versions, timed beside SDPA's
 backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
-more step) and ``train_ckpt`` the training phases, ``serve:ARCH`` a
+more step) and ``train_ckpt`` the training phases,
+``mesh_train:gemma3-1b`` and ``flash_decode_shards`` the mesh phases (on
+a world-1 NCCL group, started for them and ended after; ``--profile``
+traces 16 decode steps with and without the mesh), ``serve:ARCH`` a
 serving phase of
 ``chip_smoke.SERVE`` (``--profile`` traces its window of steps) and
 ``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32
@@ -69,6 +72,15 @@ def main() -> int:
             out[phase] = cs.train_phase(dev, args.seed, args.profile)
         elif phase == "train_ckpt":
             out[phase] = cs.train_ckpt_phase(dev, args.seed)
+        elif phase in ("mesh_train:gemma3-1b", "flash_decode_shards"):
+            cs.start_world1()
+            try:
+                out[phase] = (cs.mesh_train_phase(dev, args.seed)
+                              if phase.startswith("mesh_train")
+                              else cs.flash_decode_phase(
+                                  dev, args.seed, attn, args.profile))
+            finally:
+                cs.stop_world1()
         elif phase.startswith("serve:"):
             out[phase] = cs.serving_phase(dev, args.seed, attn, phase[6:],
                                           profile=args.profile)
