@@ -174,7 +174,9 @@ Phases, each of which must pass or the script exits non-zero:
    losses, metrics and parameters bit-identical to 3 plain steps from the
    same seed and batches; one pod-compressed step on (1, 1, 1) whose
    residual is exactly ``gf - q * scale`` of the plain gradient; ms a step
-   of both) and ``flash_decode_shards`` (the paged kernel's log-sum-exp
+   of both; the peak bytes the mesh steps held, from
+   ``torch.cuda.max_memory_allocated``) and ``flash_decode_shards`` (the
+   paged kernel's log-sum-exp
    output at the serving shape, f32 and bf16, against its plain version,
    with an empty row; 1, 2, 4 and 8 shards emulated on page subsets and
    combined by ``transformer.combine_shards``, within TOL of the unsharded
@@ -182,7 +184,16 @@ Phases, each of which must pass or the script exits non-zero:
    qwen2.5-14b at full width, 4 layers, bf16, B 2, S 256 through
    ``prefill`` with ``flash_decode_shards`` under the mesh, the pools
    split on the page axis, logits bit-identical to the plain decode and
-   every paged launch the lse variant).
+   every paged launch the lse variant);
+16. the dry run (``dryrun``): one child process, with no card, started
+   before the mesh phases and run beside them on one core, runs
+   ``repro_torch.launch.dryrun.run_cell`` on a fake process group of 256
+   ranks on the ``meta`` device for two cells: ``mesh_train:gemma3-1b``'s
+   own (6 layers, B 4, S 1024, f32, a (1, 1) mesh), whose predicted
+   ``per_device_total`` must be within ``DRYRUN_BAND`` (0.8-1.25) of the
+   peak the mesh steps held on the card, and ``gemma3-1b|train_4k|single``
+   at full size on the 16 x 16 mesh (its memory, ``fits`` and roofline
+   printed).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
@@ -3006,8 +3017,10 @@ def train_phase(dev, seed, profile=False):
     import shutil
 
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeCell, get_config
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.roofline import (PEAK_FLOPS_F32,
+                                             model_flops_for_cell)
     from repro_torch.models.model import build_model, model_flops_per_token
     from repro_torch.training.fault_tolerance import FailureInjector
 
@@ -3056,6 +3069,14 @@ def train_phase(dev, seed, profile=False):
     n_act, attn = model_flops_per_token(cfg, S)
     flops_tok = 6 * n_act + 3 * attn
     mfu = flops_tok * B * S / step_s
+    # the dry run's yardstick: MODEL_FLOPS of this cell over the measured
+    # step, against the f32 peak
+    model_flops = model_flops_for_cell(cfg, ShapeCell("train", S, B,
+                                                      "train"))
+    rf = dict(model_flops=model_flops, step_s=step_s,
+              model_flops_per_s=model_flops / step_s,
+              peak_flops=PEAK_FLOPS_F32,
+              roofline_fraction=model_flops / step_s / PEAK_FLOPS_F32)
     r = dict(arch=cfg.name, params=n_params, B=B, S=S, steps=TRAIN_STEPS,
              steps_run=steps_run, restarts=res.restarts, wall_s=wall,
              losses=[m["loss"] for m in hist],
@@ -3063,7 +3084,7 @@ def train_phase(dev, seed, profile=False):
              ms_per_step=step_s * 1e3, tokens_per_s=B * S / step_s,
              peak_bytes=peak, model_flops_per_token=flops_tok,
              model_flops_per_s=mfu, share_of_f32_peak=mfu / PEAK_F32_FLOPS,
-             launches=launches, parameters_changed=changed)
+             roofline=rf, launches=launches, parameters_changed=changed)
     if profile:
         r["profile"] = train_profile(args, cfg, api, res.state)
     log(f"train:{cfg.name}: {n_params} parameters, {steps_run} steps run "
@@ -3071,7 +3092,10 @@ def train_phase(dev, seed, profile=False):
         f"{r['ms_per_step']:.3f} ms a step (median of steps 2-8), "
         f"{r['tokens_per_s']:.1f} tokens/s, peak {peak} bytes, model "
         f"{mfu:.4e} FLOP/s ({r['share_of_f32_peak']:.4f} of 67 TFLOP/s f32); "
-        f"launches {launches}; on {nvidia_smi()}")
+        f"roofline: MODEL_FLOPS {model_flops:.6e} a step (model_flops_for_"
+        f"cell), {rf['model_flops_per_s']:.4e} FLOP/s, roofline_fraction "
+        f"{rf['roofline_fraction']:.4f}; launches {launches}; on "
+        f"{nvidia_smi()}")
     del res, model, api
     return r
 
@@ -3292,8 +3316,21 @@ def mesh_train_phase(dev, seed):
     state = shard_state(state, state_shardings(
         cfg, param_axes(state["params"]), mesh, state["params"], acfg))
     step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
+    # the steps' peak: what the allocator held at most over the mesh
+    # steps, less what was there before them other than the step's own
+    # arguments (the sharded state and one batch)
+    held = sum(t.to_local().numel() * t.element_size() for t in
+               list(state["params"].parameters())
+               + list(state["opt"]["mu"].values())
+               + list(state["opt"]["nu"].values())) \
+        + state["opt"]["step"].numel() * state["opt"]["step"].element_size() \
+        + batches[0]["tokens"].numel() * batches[0]["tokens"].element_size()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     (state, mesh_m, mesh_t), launches, _ = counted_run(
         train_counters(), lambda: run(step, state, MESH_TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated()
     require_launched("mesh_train", launches)
     mesh_params = {n: p.to_local() for n, p in
                    state["params"].named_parameters()}
@@ -3349,14 +3386,18 @@ def mesh_train_phase(dev, seed):
              * 1e3, plain_ms_per_step=statistics.median(plain_t) * 1e3,
              mesh_step_s=mesh_t, plain_step_s=plain_t,
              pod_step_s=pod_s, pod_ef_exact=True, launches=launches,
-             nccl_setup_s=nccl_s)
+             nccl_setup_s=nccl_s, peak_bytes=peak, allocated_before=before,
+             arguments_bytes=held, step_peak_bytes=peak - before + held)
     log(f"mesh_train:{cfg.name} (6 layers, B {B}, S {S}, f32): "
         f"{MESH_TRAIN_STEPS} steps on a (1, 1) mesh bit-identical to the "
         f"plain steps (losses {r['losses']}); "
         f"{r['mesh_ms_per_step']:.3f} ms a mesh step, "
         f"{r['plain_ms_per_step']:.3f} ms a plain step; pod step on "
         f"(1, 1, 1) {pod_s * 1e3:.3f} ms, loss equal, ef = gf - q * scale "
-        f"exactly; launches {launches}; on {nvidia_smi()}")
+        f"exactly; peak {peak} bytes over the mesh steps ({before} "
+        f"allocated before them, {held} of it the state and a batch: the "
+        f"steps held {r['step_peak_bytes']} bytes at most); launches "
+        f"{launches}; on {nvidia_smi()}")
     return r
 
 
@@ -3512,6 +3553,102 @@ def mesh_phases(dev, seed, attn) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the dry run --
+DRYRUN_BAND = (0.8, 1.25)      # predicted over measured peak of mesh_train
+DRYRUN_CHILD = r"""
+import json, time
+t0 = time.perf_counter()
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.launch import dryrun
+out = {"import_s": time.perf_counter() - t0}
+cfg = get_config("gemma3-1b")
+with dryrun.fake_process_group(256):
+    out["mesh_train"] = dryrun.run_cell(
+        "gemma3-1b", "train_4k", False,
+        cfg_override=cfg.replace(n_layers=6, dtype="float32"),
+        cell=ShapeCell("mesh_train", 1024, 4, "train"), mesh_shape=(1, 1))
+    out["train_4k"] = dryrun.run_cell("gemma3-1b", "train_4k", False)
+print(json.dumps(out))
+"""
+
+
+def start_dryrun():
+    """Start the dry run's child process (see :func:`dryrun_phase`): no
+    card (``CUDA_VISIBLE_DEVICES`` empty), one core, so it runs beside the
+    mesh phases; returns it and its start time."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return (subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=str(ROOT)),
+            time.perf_counter())
+
+
+def dryrun_phase(mesh_train, child=None) -> dict:
+    """``dryrun``: one child process (:func:`start_dryrun`; the fake
+    process group cannot share this process with the mesh phases' NCCL
+    group) runs ``repro_torch.launch.dryrun.run_cell`` on a fake group of
+    256 ranks on ``meta`` for (a) ``mesh_train:gemma3-1b``'s cell (6
+    layers, B 4, S 1024, f32, a (1, 1) mesh), whose ``per_device_total``
+    must be within DRYRUN_BAND of the bytes the mesh steps held at most on
+    the card (``mesh_train``'s ``step_peak_bytes``), and (b)
+    ``gemma3-1b|train_4k|single`` at full size on the 16 x 16 mesh: its
+    memory, ``fits`` and roofline (CPU model outputs for the H100's peaks,
+    not card times).  ``child`` is one started earlier; ``wait_s`` is what
+    the phase adds to the run after the mesh phases."""
+    proc, t_start = child or start_dryrun()
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wait = time.perf_counter() - t0
+    wall = time.perf_counter() - t_start
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the child failed (rc "
+                             f"{proc.returncode}):\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    a, b = out["mesh_train"], out["train_4k"]
+    measured = mesh_train["step_peak_bytes"]
+    ratio = a["memory"]["per_device_total"] / measured
+    r = dict(wall_s=wall, wait_s=wait, import_s=out["import_s"],
+             mesh_train=dict(memory=a["memory"], hlo=a["hlo"],
+                             timings=a["timings"],
+                             measured_step_peak_bytes=measured,
+                             measured_peak_bytes=mesh_train["peak_bytes"],
+                             ratio=ratio),
+             train_4k=dict(memory=b["memory"], hlo=b["hlo"],
+                           roofline=b["roofline"], peaks=b["peaks"],
+                           timings=b["timings"]))
+    m = b["memory"]
+    log(f"dryrun (a) mesh_train:gemma3-1b: predicted per_device_total "
+        f"{a['memory']['per_device_total']} bytes (arguments "
+        f"{a['memory']['argument_bytes']}, temp {a['memory']['temp_bytes']};"
+        f" the plain attention's own {a['memory']['plain_attention_bytes']}"
+        f" left out) against {measured} measured over the mesh steps "
+        f"(raw peak {mesh_train['peak_bytes']}): ratio {ratio:.4f}, band "
+        f"{DRYRUN_BAND}; traced in {a['timings']['compile_s']:.3f} s")
+    log(f"dryrun (b) gemma3-1b|train_4k|single (16 x 16, bf16, CPU model "
+        f"for the H100's peaks): per_device_total {m['per_device_total']} "
+        f"bytes, fits {m['fits']} (80 GB), the plain attention "
+        f"{m['plain_attention_bytes']} more; roofline "
+        f"{json.dumps(b['roofline'])}; traced in "
+        f"{b['timings']['compile_s']:.3f} s")
+    log(f"dryrun: {wall:.3f} s in the child (imports {out['import_s']:.3f} "
+        f"s), {wait:.3f} s waited for it after the mesh phases")
+    if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+        raise AssertionError(f"dryrun: predicted over measured peak {ratio} "
+                             f"outside {DRYRUN_BAND}")
+    if not (m["per_device_total"] > m["argument_bytes"] > 0
+            and b["roofline"]["step_s"] > 0):
+        raise AssertionError(f"dryrun (b): {m}, {b['roofline']}")
+    return r
+
+
 REPLACES = {
     "probe_allocate": "src/repro/kernels/probe_allocate.py:167",
     "cache_probe": "src/repro/kernels/cache_probe.py:75",
@@ -3630,8 +3767,17 @@ def main() -> int:
     training = train_phases(dev, args.seed, profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = mesh_phases(dev, args.seed, attn)
-    training["mesh_train:gemma3-1b"] = mesh["mesh_train:gemma3-1b"]
+    child = start_dryrun()      # beside the mesh phases, on one core
+    try:
+        mesh = mesh_phases(dev, args.seed, attn)
+        training["mesh_train:gemma3-1b"] = mesh["mesh_train:gemma3-1b"]
+        t0 = time.perf_counter()
+        dry = dryrun_phase(mesh["mesh_train:gemma3-1b"], child)
+        dry["phase_s"] = time.perf_counter() - t0
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].communicate()
     fds = mesh["flash_decode_shards"]
     kres["paged_attention"].update(
         lse_ms=fds["lse_ms"],
@@ -3696,7 +3842,7 @@ def main() -> int:
         kernels=kres,
         slice=sres, taxi=taxi, faults=faults, faults_readahead=faults_ra,
         runtime=runtime, **models, training=training,
-        flash_decode_shards=fds, total_s=total_s),
+        flash_decode_shards=fds, dryrun=dry, total_s=total_s),
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

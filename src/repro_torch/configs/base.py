@@ -1,9 +1,12 @@
 """Architecture and shape-cell configs.
 
-Port of ``repro.configs.base``: ``ArchConfig``, ``SHAPES``, ``get_config``
-and ``smoke_config``, with ``compute_dtype`` as a ``torch.dtype``.  The
-registry holds every config of the reference.  The dry-run's
-``input_specs`` has no counterpart here.
+Port of ``repro.configs.base``: ``ArchConfig``, ``SHAPES``, ``get_config``,
+``smoke_config``, ``list_archs`` and ``input_specs``, with
+``compute_dtype`` as a ``torch.dtype``.  The registry holds every config
+of the reference, listed in the reference's order.  ``input_specs`` gives
+tensors on the ``meta`` device (shapes and dtypes, no storage) where the
+reference gives ``ShapeDtypeStruct``s: what the dry run
+(:mod:`repro_torch.launch.dryrun`) feeds its step.
 """
 from __future__ import annotations
 
@@ -124,13 +127,13 @@ class ArchConfig:
 
 
 # -------------------------------------------------------------- registry ---
-PORTED = [
-    "qwen2_5_14b", "minitron_4b", "gemma3_12b", "gemma3_1b", "olmoe_1b_7b",
-    "moonshot_v1_16b_a3b", "llava_next_mistral_7b", "whisper_large_v3",
+ASSIGNED = [
+    "llava_next_mistral_7b", "gemma3_12b", "gemma3_1b", "qwen2_5_14b",
+    "minitron_4b", "olmoe_1b_7b", "moonshot_v1_16b_a3b", "whisper_large_v3",
     "xlstm_1_3b", "hymba_1_5b",
 ]
 
-_ALIASES = {a.replace("_", "-"): a for a in PORTED}
+_ALIASES = {a.replace("_", "-"): a for a in ASSIGNED}
 _ALIASES.update({
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "gemma3-12b": "gemma3_12b", "gemma3-1b": "gemma3_1b",
@@ -144,9 +147,13 @@ _ALIASES.update({
 
 def _module(name: str):
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name not in PORTED:
+    if mod_name not in ASSIGNED:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def list_archs():
+    return list(ASSIGNED)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -156,3 +163,33 @@ def get_config(name: str) -> ArchConfig:
 def smoke_config(name: str) -> ArchConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(name).SMOKE
+
+
+# ----------------------------------------------------------- input specs ---
+def input_specs(cfg: ArchConfig, cell: ShapeCell, device="meta") -> dict:
+    """Every model input of this cell as a tensor on ``device`` (``meta``
+    by default: shapes and dtypes, no storage), the reference's
+    ``ShapeDtypeStruct``s.  ``train``/``prefill`` feed the full-sequence
+    step: ``tokens`` (B, S) int32, a VLM's ``patch_embeds`` (B, P, D) with
+    P = min(n_patches, S // 2) and S - P tokens, an audio model's
+    ``enc_frames`` (B, enc_seq, D), both in the compute dtype; ``decode``
+    feeds one token per sequence, ``tokens`` (B,) int32."""
+    B, S = cell.global_batch, cell.seq_len
+    emb = cfg.compute_dtype
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if cell.kind in ("train", "prefill"):
+        batch = {}
+        if cfg.family == "vlm":
+            n_patch = min(cfg.n_patches, S // 2)
+            batch["patch_embeds"] = t((B, n_patch, cfg.d_model), emb)
+            batch["tokens"] = t((B, S - n_patch), torch.int32)
+        elif cfg.family == "audio":
+            batch["enc_frames"] = t((B, cfg.enc_seq, cfg.d_model), emb)
+            batch["tokens"] = t((B, S), torch.int32)
+        else:
+            batch["tokens"] = t((B, S), torch.int32)
+        return batch
+    return {"tokens": t((B,), torch.int32)}

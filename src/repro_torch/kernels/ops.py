@@ -18,7 +18,11 @@ from repro_torch.kernels.probe_allocate import probe_allocate_cuda
 
 
 def _on(t: torch.Tensor) -> str:
+    """``"cuda"`` for a tensor on the card, ``"cpu"`` for one that goes to
+    the plain version (on the CPU or on ``meta``)."""
     kind = t.device.type
+    if kind == "meta":
+        return "cpu"
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for tensors on {t.device}")
     return kind

@@ -230,9 +230,10 @@ class HymbaLM(nn.Module):
 
 
 def forward(cfg: ArchConfig, model: HymbaLM, batch: dict, *,
-            return_hidden: bool = False):
+            last_only: bool = False, return_hidden: bool = False):
     """Full-sequence forward -> (logits (B, S, V), {}), or with
-    ``return_hidden`` the final-normed hidden states (B, S, D): the meta
+    ``return_hidden`` the final-normed hidden states (B, S, D) (with
+    ``last_only`` the last position's, S = 1): the meta
     tokens at positions 0..M-1, the tokens after them; a window of S + M
     or more runs its layer as global; each block under
     :func:`repro_torch.models.layers.remat`."""
@@ -248,6 +249,8 @@ def forward(cfg: ArchConfig, model: HymbaLM, batch: dict, *,
             block_apply, cfg, bp, window=w if w < S + M else None,
             positions=positions), x)
     x = L.norm_apply(cfg, model.ln_f, x)[:, M:]
+    if last_only:
+        x = x[:, -1:, :]
     if return_hidden:
         return x, {}
     return L.logits_head(cfg, model.head, model.embed, x), {}

@@ -19,7 +19,9 @@ card, its plain version on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -238,6 +240,32 @@ def _top_k(probs: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
+class _MoeBatch(threading.local):
+    batch_sum = None     # local sum -> the sum over the batch's slices
+    n_slices = 1
+
+
+_MOE_BATCH = _MoeBatch()
+
+
+@contextlib.contextmanager
+def moe_batch_stats(batch_sum, n_slices: int):
+    """Within it, :func:`moe_ffn`'s aux losses take the router statistics
+    of a batch split into ``n_slices`` equal slices, one a rank (a mesh
+    step's data parallelism): ``batch_sum(t)`` returns the sum of ``t``
+    over the slices, the same on every rank, with the gradient a step needs
+    (``train_loop``'s mesh step passes its all-reduce).  The load balance
+    ``E * sum(me * ce)`` and the router z-loss are then those of the whole
+    batch, ``me``, ``ce`` and the z-loss's mean taken over all its
+    tokens."""
+    prev = (_MOE_BATCH.batch_sum, _MOE_BATCH.n_slices)
+    _MOE_BATCH.batch_sum, _MOE_BATCH.n_slices = batch_sum, n_slices
+    try:
+        yield
+    finally:
+        _MOE_BATCH.batch_sum, _MOE_BATCH.n_slices = prev
+
+
 def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
             capacity_factor: float | None = None):
     """Scatter-based top-k MoE with per-sequence dispatch, as the reference.
@@ -249,7 +277,9 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
     (whose duplicate writes are discarded).  x: (B, S, D) -> (B, S, D) and
     the aux dict: the reference's ``load_balance`` and ``router_z``, and
     ``dropped``, the number of choices past capacity (a float count; the
-    reference does not return it)."""
+    reference does not return it).  Under :func:`moe_batch_stats` the
+    load balance and z-loss are the whole batch's; ``dropped`` stays this
+    slice's."""
     B, S, D = x.shape
     dtype = cfg.compute_dtype
     E, K = cfg.n_experts, cfg.top_k
@@ -299,11 +329,21 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
         out = (y[bidx, dest] * w[..., None]).reshape(B, S, K, D).sum(2)
 
     # aux: load balance (Switch) and router z-loss
-    me = probs.mean(dim=(0, 1))                             # (E,)
-    ce = torch.zeros((B, E), device=x.device).scatter_add_(
-        1, fe, keep.float()).mean(0) / max(S * K, 1)
-    aux = {"load_balance": E * (me * ce).sum(),
-           "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+    counts = torch.zeros((B, E), device=x.device).scatter_add_(
+        1, fe, keep.float())                                # (B, E)
+    z2 = torch.logsumexp(logits, dim=-1) ** 2               # (B, S)
+    bsum = _MOE_BATCH.batch_sum
+    if bsum is None:
+        me = probs.mean(dim=(0, 1))                         # (E,)
+        ce = counts.mean(0) / max(S * K, 1)
+        z = z2.mean()
+    else:
+        # the whole batch's means: every slice's sums over its tokens
+        n = B * S * _MOE_BATCH.n_slices
+        me = bsum(probs.sum(dim=(0, 1))) / n
+        ce = bsum(counts.sum(0)) / max(n * K, 1)
+        z = bsum(z2.sum()) / n
+    aux = {"load_balance": E * (me * ce).sum(), "router_z": z,
            "dropped": (~keep).sum().float()}
     return out, aux
 

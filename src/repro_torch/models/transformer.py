@@ -180,10 +180,10 @@ def encode(cfg: ArchConfig, model: TransformerLM, frames: torch.Tensor):
 
 
 def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
-            return_hidden: bool = False):
+            last_only: bool = False, return_hidden: bool = False):
     """Full-sequence forward -> (logits (B, S, V), aux), or with
     ``return_hidden`` the final-normed hidden states (B, S, D) in place of
-    the logits.
+    the logits; with ``last_only`` only the last position's (S = 1).
 
     batch: ``tokens`` (B, S[text]) int; optional ``patch_embeds``
     (B, P, D) (VLM, prepended) and ``enc_frames`` (B, Senc, D) (audio).
@@ -200,6 +200,8 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
     x, aux = _run_blocks(cfg, model.blocks, x, cfg.layer_windows(S),
                          causal=True, enc_out=enc_out)
     x = L.norm_apply(cfg, model.ln_f, x)
+    if last_only:
+        x = x[:, -1:, :]
     if return_hidden:
         return x, aux
     return L.logits_head(cfg, model.head, model.embed, x), aux
@@ -479,13 +481,20 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, cache: dict,
                 tokens: torch.Tensor):
     """One decode step.  tokens: (B,) int, the tokens generated at the
     previous step.  Returns (logits (B, V), cache').  With learned
-    positions a position past the table raises (one host read of the
-    largest position a step)."""
+    positions a position past the table raises: the row gather's own
+    bounds check, read nothing back to the host (on the CPU a
+    ``ValueError`` at once, on the card the index kernel's device-side
+    assert)."""
     pos = cache["seq_lens"]                                  # (B,) int32
     x = L.embed(cfg, model.embed, tokens[:, None])           # (B, 1, D)
     if cfg.pos_emb == "learned":
-        rows = _positions(model.pos, int(pos.max()) + 1)
-        x = x + rows[pos.long()][:, None].to(cfg.compute_dtype)
+        table = model.pos.table
+        try:
+            rows = table[pos.long()]
+        except IndexError as e:
+            raise ValueError(f"a position past the learned table of "
+                             f"{table.shape[0]} rows") from e
+        x = x + rows[:, None].to(cfg.compute_dtype)
     new_layers = []
     for i, (bp, tagged) in enumerate(zip(model.blocks, cache["layers"])):
         xq = L.norm_apply(cfg, bp.ln1, x)

@@ -305,15 +305,18 @@ class XLSTMLM(nn.Module):
 
 
 def forward(cfg: ArchConfig, model: XLSTMLM, batch: dict, *,
-            return_hidden: bool = False):
+            last_only: bool = False, return_hidden: bool = False):
     """Full-sequence forward -> (logits (B, S, V), {}), or with
-    ``return_hidden`` the final-normed hidden states (B, S, D); each block
-    under :func:`repro_torch.models.layers.remat`."""
+    ``return_hidden`` the final-normed hidden states (B, S, D) (with
+    ``last_only`` the last position's, S = 1); each block under
+    :func:`repro_torch.models.layers.remat`."""
     x = L.embed(cfg, model.embed, batch["tokens"])
     for i, bp in enumerate(model.blocks):
         fn = slstm_block if _is_slstm(cfg, i) else mlstm_block
         x = L.remat(cfg, functools.partial(fn, cfg, bp), x)
     x = L.norm_apply(cfg, model.ln_f, x)
+    if last_only:
+        x = x[:, -1:, :]
     if return_hidden:
         return x, {}
     return L.logits_head(cfg, model.head, model.embed, x), {}

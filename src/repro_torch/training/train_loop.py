@@ -27,10 +27,16 @@ every rank of a ``model`` group computes the same gradients.  With
 ``pod_compressed_mean`` over ``pod`` for the gradients (``ef`` in the opt
 state, each pod its own residual), the loss and metrics averaged over
 ``pod``.  MoE's auxiliary losses are nonlinear in the batch (the router's
-load statistics), so an MoE model with a batch axis larger than 1 raises.
+load statistics), so when the batch is split the step puts ``moe_ffn``
+under :func:`repro_torch.models.layers.moe_batch_stats`: the router's sums
+are all-reduced over the split's axes (within a pod when pods compress),
+and their backward scales this slice's share by ``1 / w`` so that the
+weighted sum of the slices' gradients is the whole batch's.  No count is
+read back to the host.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -38,6 +44,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.models import layers as L
 from repro_torch.models.model import ModelApi, build_model, family_module
 from repro_torch.training import optimizer as opt
 
@@ -107,15 +114,43 @@ def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
     return _mesh_step(cfg, mesh_, compute_grads, adamw, lr_fn)
 
 
-def _loss_tokens(batch) -> float:
+def _loss_tokens(batch) -> torch.Tensor:
     """The positions that carry loss in ``batch`` (the models' masked
-    mean): ``loss_mask``'s sum with ``labels``, else every position but the
-    last of each sequence (``layers.shifted_labels``)."""
+    mean), an f32 scalar on the batch's device that is never read back:
+    ``loss_mask``'s sum with ``labels``, else every position but the last
+    of each sequence (``layers.shifted_labels``)."""
     if "labels" in batch:
         m = batch.get("loss_mask")
-        return float(batch["labels"].numel() if m is None else m.sum())
-    B, S = batch["tokens"].shape
-    return float(B * (S - 1))
+        if m is not None:
+            return m.sum().to(torch.float32)
+        n, dev = batch["labels"].numel(), batch["labels"].device
+    else:
+        B, S = batch["tokens"].shape
+        n, dev = B * (S - 1), batch["tokens"].device
+    return torch.tensor(float(n), device=dev)
+
+
+class _BatchSum(torch.autograd.Function):
+    """``x`` summed over the ranks of ``groups`` (one all-reduce a group).
+    Its backward gives this rank's ``x`` the gradient times ``inv_w``: every
+    rank takes the same sum into the same loss, and the mesh step weighs
+    rank r's gradients by ``w_r``, so ``1 / w_r`` makes their weighted sum
+    the gradient of the whole batch's loss."""
+
+    @staticmethod
+    def forward(ctx, x, groups, inv_w):
+        import torch.distributed as dist
+
+        ctx.save_for_backward(inv_w)
+        y = x.detach().clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv_w,) = ctx.saved_tensors
+        return grad * inv_w, None, None
 
 
 def _plain_copy(cfg: ArchConfig, model: nn.Module) -> nn.Module:
@@ -142,11 +177,6 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
     use_pod = adamw.pod_compression and "pod" in names
     rules = shd.current_rules()
     batch_rule = shd._as_tuple(rules.resolve("batch", mesh))
-    if cfg.moe and shd._axis_size(mesh, batch_rule) > 1:
-        raise NotImplementedError(
-            "MoE under a batch axis larger than 1: the router's load "
-            "statistics would need an all-reduce before the aux losses "
-            "(ROADMAP.md)")
     work = {}
 
     def split_axes(B: int) -> tuple:
@@ -190,13 +220,20 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
                 wp[n].copy_(shd.full(p))
         axes = split_axes(next(iter(batch.values())).shape[0])
         part = local_batch(batch, axes)
-        loss, metrics, grads = compute_grads(plain, part)
         # the reference's global mean: each slice weighted by its loss
         # tokens; within a pod only over data when pods compress
         data_axes = tuple(a for a in axes if not (use_pod and a == "pod"))
-        n_loc = torch.tensor(_loss_tokens(part), device=loss.device)
+        n_loc = _loss_tokens(part)
         (n_all,) = weighted_sum([n_loc], 1.0, data_axes)
         w = n_loc / n_all
+        n_slices = shd._axis_size(mesh, data_axes)
+        moe = contextlib.nullcontext()
+        if cfg.moe and n_slices > 1:
+            groups = [mesh.get_group(a) for a in data_axes]
+            moe = L.moe_batch_stats(
+                lambda t: _BatchSum.apply(t, groups, 1.0 / w), n_slices)
+        with moe:
+            loss, metrics, grads = compute_grads(plain, part)
         keys = list(metrics)
         vals = weighted_sum([loss] + [metrics[k] for k in keys]
                             + list(grads.values()), w, data_axes)

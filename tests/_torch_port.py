@@ -425,8 +425,8 @@ def _local_numpy(tensors: dict) -> dict:
             for n, t in tensors.items()}
 
 
-def _run_mesh_step(shape, names, acfg, tokens, steps):
-    """``steps`` mesh steps of qwen2.5-14b's smoke config on a mesh of
+def _run_mesh_step(shape, names, acfg, tokens, steps, arch="qwen2.5-14b"):
+    """``steps`` mesh steps of ``arch``'s smoke config on a mesh of
     ``shape``: every rank's metrics, coordinate and local update of each
     parameter (after minus before, f64); the gathered parameters and the
     opt state's DTensors after the steps."""
@@ -436,7 +436,7 @@ def _run_mesh_step(shape, names, acfg, tokens, steps):
     from repro_torch.training.train_loop import make_train_step
 
     mesh = make_mesh(shape, names, "cpu")
-    cfg = _dist_cfg("qwen2.5-14b")
+    cfg = _dist_cfg(arch)
     api, state, _ = _dist_state(cfg, 0, acfg, mesh)
     before = {n: v.astype(np.float64) for n, v in _local_numpy(
         dict(state["params"].named_parameters())).items()}
@@ -464,6 +464,20 @@ def _check_mesh_step(rank, inp, work):
     out["mu"] = _gathered_numpy(state["opt"]["mu"])
     if rank:
         del out["params"], out["mu"]
+    return out
+
+
+def _check_moe_step(rank, inp, work):
+    """olmoe-1b-7b's smoke config, two steps on a (2, 4) data/model mesh
+    from zero moments: the batch split over data 2, so the router's
+    statistics are summed over the two slices."""
+    from repro_torch.training import optimizer as opt
+
+    acfg = opt.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    _, _, out = _run_mesh_step((2, 4), ("data", "model"), acfg,
+                               inp["tokens"], 2, arch="olmoe-1b-7b")
+    if rank:
+        del out["params"]
     return out
 
 
@@ -641,7 +655,8 @@ def _check_launch_train(rank, inp, work):
 
 
 DIST_CHECKS = {
-    "mesh_step": _check_mesh_step, "pod_step": _check_pod_step,
+    "mesh_step": _check_mesh_step, "moe_step": _check_moe_step,
+    "pod_step": _check_pod_step,
     "reshard": _check_reshard, "jax_checkpoint": _check_jax_checkpoint,
     "flash_decode": _check_flash_decode, "decode_step": _check_decode_step,
     "gpipe": _check_gpipe, "pod_mean": _check_pod_mean,

@@ -1,5 +1,6 @@
 """The port's mesh paths against the JAX package, in one gloo group of 8
-ranks on the CPU: the mesh and pod-compressed train steps,
+ranks on the CPU: the mesh train step (dense and MoE) and the
+pod-compressed one,
 ``pod_compressed_mean``, checkpoints resharded and written by the JAX
 package, shard-local flash-decoding, GPipe and ``launch/train --mesh``.
 Everything runs once (``_torch_port.dist_main``, a module fixture); each
@@ -23,6 +24,7 @@ from repro.distributed import sharding as jshd
 from repro.kernels import ref as jref
 from repro.training import checkpoint as jckpt
 from repro.training import optimizer as jopt
+from repro.training.train_loop import make_train_step as jax_train_step
 from repro.training.train_loop import state_shardings as jstate_shardings
 from repro_torch import interop
 from repro_torch.configs import smoke_config
@@ -55,6 +57,13 @@ GPIPE_TOL = dict(atol=2e-5, rtol=2e-5)
 # a sound run).
 UPDATE_TOL = 1e-4
 NOISE_LEAVES = ("attn.wk.b",)
+# The MoE step's update of each parameter after two steps against the
+# reference's whole-batch step, in relative norm: a sound run's largest was
+# 1.5e-4 (blocks.1.attn.wq.w; the packages sum the expert scatter in other
+# orders); a step that averaged the slices' load statistics, or did not
+# scale their gradient back to the whole batch's, was 1.8e-3 to 0.29 off
+# on several leaves.
+MOE_UPDATE_TOL = 5e-4
 
 
 POD_SHAPES = {"a": (64, 32), "b": (7,), "c": (3, 5, 2)}
@@ -186,6 +195,44 @@ def test_mesh_train_step_matches_plain_step(ranks):
     _check_local_updates(out, "mesh_step", want, (2, 4), ("data", "model"))
     wq = got["update"]["blocks.0.attn.wq.w"]
     assert wq.shape == (cfg.d_model // 2, cfg.n_heads * cfg.hd // 4)
+
+
+def test_moe_mesh_step_matches_whole_batch_reference(ranks):
+    """olmoe-1b-7b's smoke config, two steps on (2, 4) with the batch split
+    over data 2, against the reference's ``make_train_step`` on the whole
+    batch from the same weights: the loss, ``nll``, ``load_balance``,
+    ``router_z`` and the gradient norm within 1e-3 (the router's load
+    statistics are the whole batch's, not a mean of the slices'), the
+    parameters within 2e-3 and each one's update within MOE_UPDATE_TOL of
+    the reference's in relative norm; every rank the same metrics."""
+    out, inp, _ = ranks
+    cfg = smoke_config("olmoe-1b-7b")
+    kw = dict(lr=1e-3, warmup=1, total_steps=10)
+    model = _torch_port._dist_state(cfg, 0, opt.AdamWConfig(**kw))[1][
+        "params"]
+    params = interop.params_to_numpy(model)
+    jstep = jax.jit(jax_train_step(jax_smoke("olmoe_1b_7b"),
+                                   adamw=jopt.AdamWConfig(**kw)))
+    jstate = {"params": params,
+              "opt": jopt.adamw_init(params, jopt.AdamWConfig(**kw))}
+    got = out[0]["moe_step"]
+    assert all(o["moe_step"]["metrics"] == got["metrics"] for o in out)
+    for m in got["metrics"]:
+        jstate, jm = jstep(jstate, {"tokens": inp["tokens"]})
+        for k in ("loss", "nll", "load_balance", "router_z", "grad_norm"):
+            want = float(jm[k])
+            assert abs(m[k] - want) <= LOSS_TOL * max(1.0, abs(want)), \
+                (k, m[k], want)
+    before = _initial_params(cfg)
+    ref = interop.params_from_numpy(cfg, jax.tree_util.tree_map(
+        np.asarray, jstate["params"]), "cpu")
+    for n, p in ref.named_parameters():
+        p = p.detach().numpy()
+        np.testing.assert_allclose(got["params"][n], p, err_msg=n,
+                                   **STEP_TOL)
+        want = p.astype(np.float64) - before[n]
+        err = np.linalg.norm(got["params"][n] - p) / np.linalg.norm(want)
+        assert err <= MOE_UPDATE_TOL, (n, err)
 
 
 def _pod_mean_ref(g, e):

@@ -341,9 +341,9 @@ def test_train_step_matches_jax(microbatches):
 
 
 def test_train_step_with_a_mesh_raises():
-    """A mesh step builds for a dense model; for MoE with a batch axis
-    larger than 1 it raises (its router statistics are not all-reduced
-    before the aux losses), with a batch axis of 1 it builds.
+    """A mesh step builds for a dense model and for MoE, with a batch axis
+    larger than 1 (its router statistics are summed over the slices) and
+    of 1; given a state that is not sharded it raises.
     ``test_torch_distributed.py`` runs the mesh step."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.launch.mesh import make_mesh
@@ -356,11 +356,15 @@ def test_train_step_with_a_mesh_raises():
         mesh = make_mesh((2, 4), ("data", "model"), "cpu")
         assert callable(make_train_step(cfg, build_model(cfg, "cpu"),
                                         mesh=mesh))
-        with pytest.raises(NotImplementedError, match="MoE"):
-            make_train_step(moe, build_model(moe, "cpu"), mesh=mesh)
+        step = make_train_step(moe, build_model(moe, "cpu"), mesh=mesh)
         assert callable(make_train_step(
             moe, build_model(moe, "cpu"),
             mesh=make_mesh((1, 8), ("data", "model"), "cpu")))
+        model = build_model(moe, "cpu").init(0, 16)
+        state = {"params": model, "opt": opt.adamw_init(model,
+                                                         opt.AdamWConfig())}
+        with pytest.raises(ValueError, match="sharded state"):
+            step(state, {"tokens": torch.zeros((4, 16), dtype=torch.int32)})
     finally:
         torch.distributed.destroy_process_group()
 

@@ -3,7 +3,8 @@
 
     python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
         [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
-        [mesh_train:gemma3-1b] [flash_decode_shards] [--seed 0] [--profile]
+        [mesh_train:gemma3-1b] [flash_decode_shards] [dryrun] [--seed 0]
+        [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
 against its plain version), ``attn_bwd`` the flash backward's (and the
@@ -12,7 +13,9 @@ backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
 more step) and ``train_ckpt`` the training phases,
 ``mesh_train:gemma3-1b`` and ``flash_decode_shards`` the mesh phases (on
 a world-1 NCCL group, started for them and ended after; ``--profile``
-traces 16 decode steps with and without the mesh), ``serve:ARCH`` a
+traces 16 decode steps with and without the mesh), ``dryrun`` the dry
+run's child process held against ``mesh_train:gemma3-1b``'s peak (which it
+runs beside the child when it has not run yet), ``serve:ARCH`` a
 serving phase of
 ``chip_smoke.SERVE`` (``--profile`` traces its window of steps) and
 ``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32
@@ -81,6 +84,22 @@ def main() -> int:
                                   dev, args.seed, attn, args.profile))
             finally:
                 cs.stop_world1()
+        elif phase == "dryrun":
+            child = cs.start_dryrun()
+            try:
+                if "mesh_train:gemma3-1b" not in out:
+                    cs.start_world1()
+                    try:
+                        out["mesh_train:gemma3-1b"] = cs.mesh_train_phase(
+                            dev, args.seed)
+                    finally:
+                        cs.stop_world1()
+                out[phase] = cs.dryrun_phase(out["mesh_train:gemma3-1b"],
+                                             child)
+            finally:
+                if child[0].poll() is None:
+                    child[0].kill()
+                    child[0].communicate()
         elif phase.startswith("serve:"):
             out[phase] = cs.serving_phase(dev, args.seed, attn, phase[6:],
                                           profile=args.profile)
