@@ -185,7 +185,21 @@ Phases, each of which must pass or the script exits non-zero:
    ``prefill`` with ``flash_decode_shards`` under the mesh, the pools
    split on the page axis, logits bit-identical to the plain decode and
    every paged launch the lse variant);
-16. the dry run (``dryrun``): one child process, with no card, started
+16. tensor parallelism on one card (``mesh_tp:gemma3-1b``): NCCL takes
+   one rank a device, so two processes, started before the mesh phases,
+   wait off the card until the mesh phases' timed work is done, then run
+   beside the dry run's wait and share the card in a gloo group on CUDA
+   tensors as a
+   (1, 2) data/model mesh; ``mesh_train``'s cell, 3 tensor-parallel steps
+   (each rank 2 of the 4 q heads, the kv projection's columns gathered to
+   the one kv head, half of the MLP and of the tied vocabulary), rank 0's
+   losses, gradient norms and gathered parameters within ``STEP_TOL``
+   (2e-3) of 3 plain steps on the card, each parameter's update within
+   ``UPDATE_TOL`` (1e-4) of the plain steps' in relative norm; both ranks
+   launch the flash forward and its f32 ``simt`` backward, on 2 q heads
+   only; each rank's local weight shapes, ms a step and peak bytes
+   printed;
+17. the dry run (``dryrun``): one child process, with no card, started
    before the mesh phases and run beside them on one core, runs
    ``repro_torch.launch.dryrun.run_cell`` on a fake process group of 256
    ranks on the ``meta`` device for two cells: ``mesh_train:gemma3-1b``'s
@@ -209,7 +223,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, times and bound (the BaM kernels
 also with their launches in each phase of 5-8, the attention kernels in
 each serving phase, each forward of 11 and 13, each training phase of
-14 and each phase of 15; the paged kernel's launches with and without the
+14 and each phase of 15 and 16 (16's summed over its two ranks); the paged kernel's launches with and without the
 log-sum-exp; every phase sets the
 counts to 0 just before it runs and reads them just after).  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -217,6 +231,7 @@ counts to 0 just before it runs and reads them just after).  Details go to
 from __future__ import annotations
 
 import argparse
+import datetime
 import gc
 import json
 import pathlib
@@ -3649,6 +3664,276 @@ def dryrun_phase(mesh_train, child=None) -> dict:
     return r
 
 
+# ----------------------------------------------------- tensor parallelism --
+MESH_TP_WORLD = 2
+STEP_TOL = dict(atol=2e-3, rtol=2e-3)   # tests/test_torch_distributed.py's
+UPDATE_TOL = 1e-4    # each parameter's update against the plain step's,
+#                      in relative norm (the distributed tests' limit)
+MESH_TP_GO_TIMEOUT_S = 900
+
+
+def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
+    """One rank of ``mesh_tp:gemma3-1b`` (see :func:`mesh_tp_phase`), in a
+    process of its own: a gloo group of MESH_TP_WORLD ranks on the one
+    card (met through a FileStore), ``mesh_train``'s cell on a (1, 2)
+    data/model mesh.  It starts the group, then waits for the file ``go``
+    (:func:`release_mesh_tp`) before it does any work on the card, so it
+    can start beside timed phases without running beside them.  Then
+    MESH_TRAIN_STEPS tensor-parallel steps with the launch counts set to 0
+    before them and read after, the flash kernels' q head counts recorded
+    on the way; the updated parameters gathered over ``model``.  Rank 0
+    then runs as many plain steps from the same seed and batches and holds
+    the losses, gradient norms and parameters within STEP_TOL, and each
+    parameter's update within UPDATE_TOL of the plain steps' in relative
+    norm.  Returns the rank's record (printed as JSON)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.interop import param_axes
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 shard_state,
+                                                 state_shardings)
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.lib()
+    dist.init_process_group("gloo", store=dist.FileStore(store, MESH_TP_WORLD),
+                            rank=rank, world_size=MESH_TP_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        deadline = time.monotonic() + MESH_TP_GO_TIMEOUT_S
+        while not pathlib.Path(go).exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"mesh_tp: no {go} after "
+                                   f"{MESH_TP_GO_TIMEOUT_S} s")
+            time.sleep(0.05)
+        t_go = time.perf_counter()
+        B, S = 4, 1024
+        cfg = get_config("gemma3-1b").replace(n_layers=6, dtype="float32")
+        api = build_model(cfg, dev)
+        acfg = opt.AdamWConfig(lr=3e-3, warmup=10,
+                               total_steps=MESH_TRAIN_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(seed + 11)
+        batches = [{"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)}
+                   for _ in range(MESH_TRAIN_STEPS)]
+
+        def fresh():
+            model = api.init(seed, S).requires_grad_(True)
+            return {"params": model, "opt": opt.adamw_init(model, acfg)}
+
+        heads = {"fwd": set(), "bwd": set()}
+        fwd, bwd = ops.flash_attention_cuda, ops.flash_attention_bwd_cuda
+
+        def fwd_heads(q, *a, **kw):
+            heads["fwd"].add(q.shape[1])
+            return fwd(q, *a, **kw)
+
+        def bwd_heads(q, *a, **kw):
+            heads["bwd"].add(q.shape[1])
+            return bwd(q, *a, **kw)
+
+        mesh = make_mesh((1, MESH_TP_WORLD), ("data", "model"), "cuda")
+        state = fresh()
+        state = shard_state(state, state_shardings(
+            cfg, param_axes(state["params"]), mesh, state["params"], acfg))
+        step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
+        metrics, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = \
+            fwd_heads, bwd_heads
+        try:
+            counters = train_counters()
+            for c in counters.values():
+                c.n = 0
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+                times.append(time.perf_counter() - t0)
+            launches = {k: c.n for k, c in counters.items()}
+        finally:
+            ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = fwd, bwd
+        peak = torch.cuda.max_memory_allocated()
+        local = {n: list(p.shape) for n, p in
+                 step.work["model"].named_parameters()}
+        group = mesh.get_group("model")
+        full = {}
+        with torch.no_grad():
+            for n, p in state["params"].named_parameters():
+                x = p.to_local()
+                for d in tp.model_dims(shd.spec_of(p)):
+                    parts = [torch.empty_like(x) for _ in
+                             range(MESH_TP_WORLD)]
+                    dist.all_gather(parts, x.contiguous(), group=group)
+                    x = torch.cat(parts, d)
+                full[n] = x
+        r = dict(rank=rank, losses=[m["loss"] for m in metrics],
+                 grad_norms=[m["grad_norm"] for m in metrics],
+                 step_s=times, ms_per_step=statistics.median(times) * 1e3,
+                 peak_bytes=peak, launches=launches,
+                 q_heads={k: sorted(v) for k, v in heads.items()},
+                 local_shapes={n: local[n] for n in (
+                     "embed.table", "blocks.0.attn.wq.w",
+                     "blocks.0.attn.wk.w", "blocks.0.attn.wo.w",
+                     "blocks.0.mlp.w1.w", "blocks.0.mlp.w2.w")})
+        del state, step
+        if rank == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain, pm = fresh(), []
+            init = {n: p.detach().double() for n, p in
+                    plain["params"].named_parameters()}
+            pstep = make_train_step(cfg, api, adamw=acfg)
+            for b in batches:
+                plain, m = pstep(plain, b)
+                pm.append({k: float(v) for k, v in m.items()})
+            errs = {}
+            for k in ("loss", "grad_norm"):
+                got = torch.tensor([m[k] for m in metrics], dtype=torch.float64)
+                want = torch.tensor([m[k] for m in pm], dtype=torch.float64)
+                if not torch.allclose(got, want, **STEP_TOL):
+                    raise AssertionError(f"mesh_tp: {k} {got.tolist()} "
+                                         f"against plain {want.tolist()}")
+                errs[k] = float((got - want).abs().max())
+            worst, bad, upd = 0.0, [], {}
+            for n, p in plain["params"].named_parameters():
+                if not torch.allclose(full[n], p, **STEP_TOL):
+                    bad.append(n)
+                worst = max(worst, float((full[n] - p).abs().max()))
+                want = p.detach().double() - init[n]
+                got = full[n].double() - init[n]
+                upd[n] = float((got - want).norm()
+                               / want.norm().clamp(min=1e-30))
+            if bad:
+                raise AssertionError(f"mesh_tp: parameters beyond STEP_TOL "
+                                     f"of the plain steps: {bad}")
+            top = sorted(upd.items(), key=lambda kv: -kv[1])[:4]
+            if top[0][1] > UPDATE_TOL:
+                raise AssertionError(f"mesh_tp: updates beyond UPDATE_TOL "
+                                     f"{UPDATE_TOL} of the plain steps' in "
+                                     f"relative norm: {top}")
+            r.update(plain_losses=[m["loss"] for m in pm],
+                     plain_grad_norms=[m["grad_norm"] for m in pm],
+                     metric_errs=errs, param_max_abs_err=worst,
+                     update_rel_errs=top)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    r["wall_s"] = time.perf_counter() - t_start
+    r["work_s"] = time.perf_counter() - t_go
+    return r
+
+
+MESH_TP_CHILD = r"""
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import chip_smoke
+print(json.dumps(chip_smoke.mesh_tp_rank(int(sys.argv[2]), sys.argv[3],
+                                         sys.argv[4], int(sys.argv[5]))))
+"""
+
+
+MESH_TP_GO = ROOT / "build" / "chip_tp_go"
+
+
+def start_mesh_tp(seed):
+    """Start the MESH_TP_WORLD rank processes of ``mesh_tp:gemma3-1b`` (see
+    :func:`mesh_tp_phase`); they start up and wait, off the card, for
+    :func:`release_mesh_tp`.  Returns them and the start time."""
+    import os
+
+    store = ROOT / "build" / "chip_tp_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    MESH_TP_GO.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_TP_CHILD, str(ROOT), str(r), str(store),
+         str(MESH_TP_GO), str(seed)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+        for r in range(MESH_TP_WORLD)]
+    return procs, time.perf_counter()
+
+
+def release_mesh_tp() -> None:
+    """Let the ranks of :func:`start_mesh_tp` go on to their work on the
+    card."""
+    MESH_TP_GO.touch()
+
+
+def stop_children(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def mesh_tp_phase(child) -> dict:
+    """``mesh_tp:gemma3-1b``: tensor-parallel training on one card.  NCCL
+    takes one rank a device, so MESH_TP_WORLD processes share the card in
+    a gloo group on CUDA tensors (:func:`start_mesh_tp`, started earlier,
+    released here if not before; :func:`mesh_tp_rank`): ``mesh_train``'s cell
+    (gemma3-1b at full width, 6 layers, B 4, S 1024, f32 with TF32 off) on
+    a (1, 2) data/model mesh, so each rank holds 2 of the 4 q heads and
+    half of each kv projection's columns (gathered to the 1 kv head), half
+    of the MLP and of the tied vocabulary.  MESH_TRAIN_STEPS steps; rank
+    0's losses, gradient norms and updated parameters (gathered) within
+    STEP_TOL of as many plain steps on the card, each parameter's update
+    within UPDATE_TOL in relative norm; on both ranks the flash forward
+    and its f32 ``simt`` backward launched, on 2 q heads only.  Prints
+    each rank's local weight shapes, ms a step and peak bytes."""
+    procs, t_start = child
+    release_mesh_tp()
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        stop_children(procs)
+    wait = time.perf_counter() - t0
+    bad = [(r, p.returncode, err[-4000:]) for r, (p, (_, err)) in
+           enumerate(zip(procs, outs)) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"mesh_tp: ranks failed: {bad}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    for r in ranks:
+        require_launched(f"mesh_tp rank {r['rank']}", r["launches"])
+        if r["q_heads"] != {"fwd": [2], "bwd": [2]}:
+            raise AssertionError(f"mesh_tp rank {r['rank']}: flash ran on "
+                                 f"q heads {r['q_heads']}, not 2")
+        log(f"mesh_tp rank {r['rank']}: local shapes {r['local_shapes']}; "
+            f"{r['ms_per_step']:.3f} ms a step ({r['step_s']}), peak "
+            f"{r['peak_bytes']} bytes; launches {r['launches']}; flash "
+            f"q heads {r['q_heads']}; {r['wall_s']:.3f} s in the process")
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in r0["launches"]}
+    log(f"mesh_tp:gemma3-1b (6 layers, B 4, S 1024, f32, (1, 2) on one card "
+        f"over gloo): losses {r0['losses']} against plain "
+        f"{r0['plain_losses']}, grad norms {r0['grad_norms']} against "
+        f"{r0['plain_grad_norms']} (largest differences "
+        f"{r0['metric_errs']}), parameters within "
+        f"{r0['param_max_abs_err']} (STEP_TOL {STEP_TOL}), the largest "
+        f"relative errors of the updates {r0['update_rel_errs']} "
+        f"(UPDATE_TOL {UPDATE_TOL}); {wait:.3f} s waited for the ranks; "
+        f"on {nvidia_smi()}")
+    return dict(ranks=ranks, launches=launches, wait_s=wait,
+                wall_s=time.perf_counter() - t_start,
+                ms_per_step=[r["ms_per_step"] for r in ranks],
+                peak_bytes=[r["peak_bytes"] for r in ranks])
+
+
 REPLACES = {
     "probe_allocate": "src/repro/kernels/probe_allocate.py:167",
     "cache_probe": "src/repro/kernels/cache_probe.py:75",
@@ -3768,16 +4053,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     child = start_dryrun()      # beside the mesh phases, on one core
+    tp_child = start_mesh_tp(args.seed)     # two ranks: they start up there
     try:
         mesh = mesh_phases(dev, args.seed, attn)
         training["mesh_train:gemma3-1b"] = mesh["mesh_train:gemma3-1b"]
+        release_mesh_tp()       # on the card beside the dry run's wait only
         t0 = time.perf_counter()
         dry = dryrun_phase(mesh["mesh_train:gemma3-1b"], child)
         dry["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        training["mesh_tp:gemma3-1b"] = mesh_tp_phase(tp_child)
+        training["mesh_tp:gemma3-1b"]["phase_s"] = time.perf_counter() - t0
     finally:
-        if child[0].poll() is None:
-            child[0].kill()
-            child[0].communicate()
+        stop_children([child[0]] + tp_child[0])
     fds = mesh["flash_decode_shards"]
     kres["paged_attention"].update(
         lse_ms=fds["lse_ms"],

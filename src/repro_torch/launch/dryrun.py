@@ -20,13 +20,21 @@ Each cell runs what the port runs on that rank:
     mesh=...)`` step on ``input_specs``' batch (pod compression off unless
     ``--compressed``, as the reference);
   * ``prefill``: the parameters sharded by ``param_shardings``, gathered
-    into a plain copy as the mesh step does, then ``forward(...,
-    last_only=True)`` on this rank's slice of the batch;
-  * ``decode``: the parameters whole on every rank (the port's decode keeps
-    them so), this rank's slice of the batch (a data-parallel replica
-    serves its own sequences) and its cache as the port lays it out under
-    the mesh (pools split over ``model`` under ``flash_decode_shards``,
-    else whole), then one ``decode_step``.
+    into the mesh step's work copy (``train_loop.work_copy``: for the
+    transformer family a tensor-parallel local copy, each ``model``-split
+    weight this rank's ``model`` shard; hymba and xLSTM a whole plain
+    copy), then ``forward(..., last_only=True)`` on this rank's slice of
+    the batch, under ``tensor_parallel.activate`` for the transformer
+    family;
+  * ``decode``: for the transformer family the parameters held as that
+    local copy (whole over ``data``, this rank's ``model`` shards: a
+    serving replica keeps them so), for hymba and xLSTM whole on every
+    rank; this rank's slice of the batch (a data-parallel replica serves
+    its own sequences) and its cache as the port lays it out under the
+    mesh (pools split over ``model`` under ``flash_decode_shards``, else
+    whole), then one ``decode_step`` (tensor-parallel for the transformer
+    family: q, k, v gathered to whole heads, ``wo``, the MLP and the head
+    split).
 
 One dispatch walk of the step (:class:`repro_torch.launch.op_analysis.OpWalk`)
 under ``FlopCounterMode`` gives the reference's keys:
@@ -84,14 +92,16 @@ import torch.distributed as dist
 from repro_torch.configs.base import (SHAPES, get_config, input_specs,
                                       list_archs)
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.interop import param_axes
 from repro_torch.launch import op_analysis, roofline
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models.model import build_model, family_module
 from repro_torch.training import optimizer as opt
-from repro_torch.training.train_loop import (_plain_copy, batch_shardings,
+from repro_torch.training.train_loop import (batch_shardings, load_work,
                                              make_train_step, shard_state,
-                                             state_shardings)
+                                             state_shardings,
+                                             tensor_parallel, work_copy)
 
 WORLD = 512          # ranks of the fake group: both production meshes fit
 META = torch.device("meta")
@@ -217,10 +227,14 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
             held = _tensors(state) + list(local.values())
             return (step, (state, batch), held, lambda out: _tensors(out[0]))
 
+        def par():
+            return tp.activate(mesh) if tensor_parallel(cfg) \
+                else contextlib.nullcontext()
+
+        model = _empty_model(cfg, cell.seq_len, device)
+        p_sh = shd.param_shardings(param_axes(model), mesh,
+                                   shapes=dict(model.named_parameters()))
         if cell.kind == "prefill":
-            model = _empty_model(cfg, cell.seq_len, device)
-            p_sh = shd.param_shardings(param_axes(model), mesh,
-                                       shapes=dict(model.named_parameters()))
             model = shard_state({"params": model, "opt": {}},
                                 {"params": p_sh})["params"]
             local = _batch_slice(_inputs(cfg, cell, device), mesh)
@@ -228,25 +242,32 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
 
             @torch.no_grad()
             def prefill_step(model, batch):
-                plain = _plain_copy(cfg, model).requires_grad_(False)
-                wp = dict(plain.named_parameters())
-                for n, p in model.named_parameters():
-                    wp[n].copy_(shd.full(p))
-                logits, _ = mod_.forward(cfg, plain, batch, last_only=True)
+                work = work_copy(cfg, model, mesh).requires_grad_(False)
+                load_work(cfg, work, model, mesh)
+                with par():
+                    logits, _ = mod_.forward(cfg, work, batch,
+                                             last_only=True)
                 return logits
 
             held = _tensors(model) + list(local.values())
             return prefill_step, (model, local), held, lambda out: []
 
-        # decode: the parameters whole, this rank's sequences
-        model = _empty_model(cfg, cell.seq_len, device)
+        # decode: the local copy (or the whole parameters), this rank's
+        # sequences
+        if tensor_parallel(cfg):
+            sharded = shard_state({"params": model, "opt": {}},
+                                  {"params": p_sh})["params"]
+            model = work_copy(cfg, sharded, mesh).requires_grad_(False)
+            load_work(cfg, model, sharded, mesh)
+            del sharded
         api = build_model(cfg, device)
         local = _batch_slice(_inputs(cfg, cell, device), mesh)
         cache = api.init_decode_cache(local["tokens"].shape[0],
                                       cell.seq_len)
 
         def serve_step(model, cache, tokens):
-            return api.decode_step(model, cache, tokens)
+            with par():
+                return api.decode_step(model, cache, tokens)
 
         held = _tensors(model) + _tensors(cache) + [local["tokens"]]
         return (serve_step, (model, cache, local["tokens"]), held,

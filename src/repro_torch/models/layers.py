@@ -2,7 +2,7 @@
 embedding, learned positions and the logits head.
 
 Port of ``repro.models.layers`` (``dense``, ``norm_apply``,
-``rms_norm_simple``, ``rope``, ``attention_qkv``, ``attention``, ``mlp``,
+``rms_norm_simple``, ``rope``, ``attention``, ``mlp``,
 ``moe_ffn``, ``embed``, ``logits_head``, ``cross_entropy`` and the chunked
 ``lm_loss_from_hidden``).  Parameters live in
 ``nn.Module``s that keep the reference's layouts, so a weight carries
@@ -16,12 +16,23 @@ because the product sees the same rounded values either way, and halves
 the weights' memory in bf16.  Attention goes through
 :mod:`repro_torch.kernels.ops`: the CUDA flash kernel for tensors on the
 card, its plain version on the CPU.
+
+Under :func:`repro_torch.distributed.tensor_parallel.activate` the layers
+compute tensor-parallel over the mesh's ``model`` axis on a local copy of
+the model (each weight the rule table splits over ``model`` holds this
+rank's ``1 / size``; the shapes say which): q, k and v and the MLP's
+``w1``/``w3`` are column-parallel, ``wo`` and ``w2`` row-parallel with a
+reduce over ``model``; attention runs on the rank's q heads (the heads
+that cover its rows of ``wo``; a projection whose local columns are not
+whole heads, or hold other kv heads than those q heads use, is gathered
+to whole heads first); MoE runs the rank's experts on its slots and sums
+the partial outputs; the embedding and the logits are vocab-parallel
+(the loss takes the cross-entropy of the rank's vocabulary columns).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.utils import segment_rank
 
@@ -184,38 +196,122 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return y.to(x.dtype)
 
 
-def attention_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                  positions: torch.Tensor, dtype: torch.dtype):
-    """Project to (B, H, S, hd) q and (B, Hkv, S, hd) k, v with RoPE."""
-    B, S, _ = x.shape
-    hd = cfg.hd
-    q = dense(p.wq, x, dtype).reshape(B, S, cfg.n_heads, hd)
-    k = dense(p.wk, x, dtype).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(p.wv, x, dtype).reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm_simple(q, p.q_norm)
-        k = rms_norm_simple(k, p.k_norm)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if cfg.pos_emb == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor, *,
               window: int | None = None, positions=None,
               causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (prefill). x: (B, S, D); ``window`` a Python
     int or None (global)."""
-    B, S, _ = x.shape
-    dtype = cfg.compute_dtype
     if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q, k, v = attention_qkv(cfg, p, x, positions, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+    return attend(cfg, p, x, x, positions, causal=causal, window=window)
+
+
+def _tp_heads(cfg: ArchConfig, n: int, r: int):
+    """Rank ``r`` of ``n``'s attention heads: its rows of ``wo`` start at
+    column ``c0`` of the (.., H * hd) attention output and number ``c``;
+    the q heads ``[h0, h1)`` cover them; ``pick`` lists the kv heads the
+    flash kernel is given for them, which maps q head i to kv head
+    ``pick[i // (len(q heads) / len(pick))]``: the kv heads those q heads
+    use, or, where they straddle a GQA group unaligned, each q head's
+    own.  One rank of one has every head."""
+    hd, G = cfg.hd, cfg.group
+    c = cfg.n_heads * hd // n
+    c0 = r * c
+    h0, h1 = c0 // hd, -(-(c0 + c) // hd)
+    kv = [h // G for h in range(h0, h1)]
+    if kv[-1] > kv[0] and (h0 % G or h1 % G):
+        return c0, c, h0, h1, kv
+    return c0, c, h0, h1, list(range(kv[0], kv[-1] + 1))
+
+
+def _project_heads(p: Dense, x: torch.Tensor, dtype, heads: int, hd: int,
+                   pick, t):
+    """One of q, k, v on the heads ``pick``, (B, S, len(pick), hd).  With
+    no ``model`` group ``t``, the whole product's heads.  Under one,
+    column-parallel when ``p`` is split (its local output taken as it is
+    when it is exactly the heads ``pick``, else gathered to whole heads),
+    whole on every rank otherwise; a whole output passes
+    ``copy_to_model`` before the rank picks its heads, so its gradient is
+    the ranks' sum."""
+    B, S = x.shape[:2]
+    if t is None:
+        y = dense(p, x, dtype)
+    elif tp.split(p.w, 1, heads * hd):
+        y = dense(p, tp.copy_to_model(x), dtype)
+        c = y.shape[-1]
+        if c % hd == 0 and list(pick) == list(range(t.rank * c // hd,
+                                                    (t.rank + 1) * c // hd)):
+            return y.reshape(B, S, c // hd, hd)
+        y = tp.copy_to_model(tp.gather_from_model(y))
+    else:
+        y = tp.copy_to_model(dense(p, x, dtype))
+    y = y.reshape(B, S, heads, hd)
+    lo, hi = pick[0], pick[-1] + 1
+    if list(pick) == list(range(lo, hi)):
+        return y[:, :, lo:hi]
+    return y[:, :, torch.tensor(pick, device=y.device)]
+
+
+def attend(cfg: ArchConfig, p: Attention, xq: torch.Tensor,
+           xkv: torch.Tensor, positions, *, causal: bool,
+           window) -> torch.Tensor:
+    """Queries of ``xq`` (B, S, D) over keys and values of ``xkv``:
+    :func:`attention` (``xkv`` is ``xq``) or, with ``positions`` None, a
+    cross-attention (no RoPE and no q/k norms, as the reference's).
+    Under tensor parallelism (``wq`` split, see
+    :func:`repro_torch.distributed.tensor_parallel.activate`) on this
+    rank's heads: the flash kernel runs on the q heads that cover the
+    rank's rows of ``wo`` and the kv heads they use (each q head its own
+    kv head where the heads straddle a GQA group unaligned), the output's
+    matching columns go through the rank's rows of ``wo``, and the ranks'
+    partial outputs are summed.  Otherwise on every head."""
+    B, S, _ = xq.shape
+    dtype, hd = cfg.compute_dtype, cfg.hd
+    t = tp.current() if tp.split(p.wq.w, 1, cfg.n_heads * hd) else None
+    c0, c, h0, h1, pick = _tp_heads(cfg, *((t.size, t.rank) if t else
+                                           (1, 0)))
+    q = _project_heads(p.wq, xq, dtype, cfg.n_heads, hd, range(h0, h1), t)
+    k = _project_heads(p.wk, xkv, dtype, cfg.n_kv_heads, hd, pick, t)
+    v = _project_heads(p.wv, xkv, dtype, cfg.n_kv_heads, hd, pick, t)
+    if positions is not None and cfg.qk_norm:
+        q_norm, k_norm = (p.q_norm, p.k_norm) if t is None else (
+            tp.copy_to_model(p.q_norm), tp.copy_to_model(p.k_norm))
+        q = rms_norm_simple(q, q_norm)
+        k = rms_norm_simple(k, k_norm)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if positions is not None and cfg.pos_emb == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return dense(p.wo, o, dtype)
+    o = o.transpose(1, 2).reshape(B, S, (h1 - h0) * hd)
+    return row_parallel(p.wo, o[..., c0 - h0 * hd:c0 - h0 * hd + c], dtype,
+                        cfg.n_heads * hd)
+
+
+def column_whole(p: Dense, x: torch.Tensor, dtype, whole: int
+                 ) -> torch.Tensor:
+    """``x @ w (+ b)`` with all ``whole`` output columns: a split ``w``'s
+    local product gathered over ``model`` (decode's q, k and v)."""
+    if tp.split(p.w, 1, whole):
+        return tp.gather_from_model(dense(p, x, dtype))
+    return dense(p, x, dtype)
+
+
+def row_parallel(p: Dense, h: torch.Tensor, dtype, whole: int
+                 ) -> torch.Tensor:
+    """``h @ w`` where ``w`` has ``whole`` rows: with ``w``'s rows split,
+    ``h`` holds the matching columns (already this rank's, or sliced here
+    from a whole ``h``) and the ranks' partial products are summed."""
+    if not tp.split(p.w, 0, whole):
+        return dense(p, h, dtype)
+    if p.b is not None:
+        raise ValueError("a row-parallel product takes no bias")
+    c = p.w.shape[0]
+    if h.shape[-1] == whole:
+        r = tp.current().rank
+        h = h[..., r * c:(r + 1) * c]
+    return tp.reduce_from_model(dense(p, h, dtype))
 
 
 def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -225,12 +321,14 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     dtype = cfg.compute_dtype
+    if tp.split(p.w1.w, 1, cfg.d_ff):     # w1, w3 by columns, w2 by rows
+        x = tp.copy_to_model(x)
     h = dense(p.w1, x, dtype)
     if cfg.gated_mlp:
         h = _act(cfg, h) * dense(p.w3, x, dtype)
     else:
         h = _act(cfg, h)
-    return dense(p.w2, h, dtype)
+    return row_parallel(p.w2, h, dtype, cfg.d_ff)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -240,7 +338,9 @@ def _top_k(probs: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
-class _MoeBatch(threading.local):
+class _MoeBatch:
+    # process-wide, not a thread's: on CUDA the backward (and remat's
+    # recompute within it) runs on autograd's device thread
     batch_sum = None     # local sum -> the sum over the batch's slices
     n_slices = 1
 
@@ -299,25 +399,39 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
                         torch.ones(B * S * K, dtype=torch.bool,
                                    device=x.device)).reshape(B, S * K)
     keep = rank < C
-    dest = torch.where(keep, fe * C + rank, E * C)          # (B, S*K)
+    # expert parallelism: this rank runs experts [e0, e0 + El) on the
+    # slots they were given (every rank ranks alike: the router is whole),
+    # the other choices go to the trash row, and the ranks' partial
+    # outputs are summed
+    El = p.w1.shape[0]
+    par = tp.split(p.w1, 0, E)
+    if par:
+        e0 = tp.current().rank * El
+        x = tp.copy_to_model(x)
+        mine = keep & (fe >= e0) & (fe < e0 + El)
+        dest = torch.where(mine, (fe - e0) * C + rank, El * C)
+    else:
+        dest = torch.where(keep, fe * C + rank, E * C)      # (B, S*K)
     tok = torch.arange(S, device=x.device).repeat_interleave(K)
     bidx = torch.arange(B, device=x.device)[:, None]
 
-    buf = torch.zeros((B, E * C + 1, D), dtype=dtype, device=x.device)
+    buf = torch.zeros((B, El * C + 1, D), dtype=dtype, device=x.device)
     buf[bidx, dest] = x.to(dtype)[:, tok]
-    h = buf[:, :E * C].reshape(B, E, C, D)
+    h = buf[:, :El * C].reshape(B, El, C, D)
     up = torch.einsum("becd,edf->becf", h, p.w1.to(dtype))
     gate = torch.einsum("becd,edf->becf", h, p.w3.to(dtype))
     y = torch.einsum("becf,efd->becd", _act(cfg, up) * gate, p.w2.to(dtype))
-    y = torch.cat([y.reshape(B, E * C, D),
+    y = torch.cat([y.reshape(B, El * C, D),
                    torch.zeros((B, 1, D), dtype=dtype, device=x.device)], 1)
     w = topv.reshape(B, S * K).to(dtype) * keep.to(dtype)   # (B, S*K)
+    if par:
+        w = tp.copy_to_model(w)
     if cfg.moe_combine == "scatter":
         # each slot's weight and token scattered, then one scatter-add of
         # the weighted slots into the tokens (row S takes the empty slots)
-        w_slot = torch.zeros((B, E * C + 1), dtype=dtype, device=x.device)
+        w_slot = torch.zeros((B, El * C + 1), dtype=dtype, device=x.device)
         w_slot[bidx, dest] = w
-        tok_slot = torch.full((B, E * C + 1), S, dtype=torch.long,
+        tok_slot = torch.full((B, El * C + 1), S, dtype=torch.long,
                               device=x.device)
         tok_slot[bidx, dest] = tok
         out = torch.zeros((B, S + 1, D), dtype=dtype, device=x.device)
@@ -327,6 +441,8 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
     else:
         # "gather" and "allgather" differ only in their sharding
         out = (y[bidx, dest] * w[..., None]).reshape(B, S, K, D).sum(2)
+    if par:
+        out = tp.reduce_from_model(out)
 
     # aux: load balance (Switch) and router z-loss
     counts = torch.zeros((B, E), device=x.device).scatter_add_(
@@ -350,22 +466,29 @@ def moe_ffn(cfg: ArchConfig, p: MoE, x: torch.Tensor, *,
 
 def embed(cfg: ArchConfig, p: Embedding, tokens: torch.Tensor
           ) -> torch.Tensor:
-    e = p.table[tokens.long()].to(cfg.compute_dtype)
+    e = tp.vocab_embed(p.table, tokens, cfg.vocab).to(cfg.compute_dtype)
     if cfg.name.startswith("gemma"):
         e = e * math.sqrt(cfg.d_model)
     return e
 
 
 def logits_head(cfg: ArchConfig, head: Dense | None, embed_p: Embedding,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, *, local: bool = False) -> torch.Tensor:
+    """The logits (.., V).  With the vocabulary split over ``model`` (a
+    tensor-parallel local copy) the product is this rank's columns, which
+    ``local`` returns as they are and otherwise gathers over ``model``."""
     dtype = cfg.compute_dtype
+    w = embed_p.table.T if cfg.tie_embeddings else head.w
+    par = tp.split(w, 1, cfg.vocab)
+    if par:
+        x = tp.copy_to_model(x)
     if cfg.tie_embeddings:
         out = x @ embed_p.table.to(dtype).T
     else:
         out = x @ head.w.to(dtype)
     if cfg.logit_softcap:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
-    return out
+    return tp.gather_from_model(out) if par and not local else out
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -410,8 +533,10 @@ def lm_loss_from_hidden(cfg: ArchConfig, head: Dense | None,
     positions are padded to a whole number of chunks of ``min(chunk, S)``
     and each chunk's (B, chunk, V) logits are recomputed in the backward
     (``checkpoint``, as the reference's ``jax.checkpoint`` of its scan
-    body), so only one chunk's logits exist at a time.  Returns the masked
-    mean NLL in f32."""
+    body), so only one chunk's logits exist at a time (under tensor
+    parallelism one chunk's ``(B, chunk, V / size)`` columns: the
+    cross-entropy is :func:`tensor_parallel.vocab_nll`'s).  Returns the
+    masked mean NLL in f32."""
     B, S, _ = x.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -422,9 +547,8 @@ def lm_loss_from_hidden(cfg: ArchConfig, head: Dense | None,
     mask = mask.float()
 
     def body(xch, lch, mch):
-        logits = logits_head(cfg, head, embed_p, xch).float()
-        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-            logits, -1, lch.long()[..., None])[..., 0]
+        logits = logits_head(cfg, head, embed_p, xch, local=True)
+        nll = tp.vocab_nll(logits, lch, cfg.vocab)
         return (nll * mch).sum()
 
     tot = x.new_zeros((), dtype=torch.float32)

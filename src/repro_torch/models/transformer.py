@@ -30,6 +30,15 @@ own set to -1) and the ranks' partial results are combined by their
 log-sum-exp (:func:`combine_shards`: an all-reduce MAX and a SUM).  The
 batch stays whole on every model rank.  On the CPU the shard-local part is
 the paged kernel's plain version with its log-sum-exp.
+
+Under :func:`repro_torch.distributed.tensor_parallel.activate`, on a local
+copy of the model, the forward and the encoder compute tensor-parallel
+over ``model`` (:mod:`repro_torch.models.layers`), the cross-attention
+too; ``decode_step`` computes q, k and v column-parallel and gathers them
+to whole heads (one token: cheap), attends exactly as without it (the
+paged kernel on whole pools, shard-local flash-decoding, the rings), and
+runs ``wo``, the MLP or the experts and the head row-, column- and
+vocab-parallel, the logits gathered to (B, V).
 """
 from __future__ import annotations
 
@@ -126,16 +135,7 @@ def _cross_attention(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
                      enc_out: torch.Tensor) -> torch.Tensor:
     """Full-sequence cross-attention: queries from the decoder, keys and
     values from the encoder's output, no mask, no positions."""
-    B, S, _ = xq.shape
-    dtype, hd = cfg.compute_dtype, cfg.hd
-    q = L.dense(p.wq, xq, dtype).reshape(B, S, cfg.n_heads, hd)
-    k = L.dense(p.wk, enc_out, dtype).reshape(B, -1, cfg.n_kv_heads, hd)
-    v = L.dense(p.wv, enc_out, dtype).reshape(B, -1, cfg.n_kv_heads, hd)
-    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(), causal=False)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
-    return L.dense(p.wo, o, dtype)
+    return L.attend(cfg, p, xq, enc_out, None, causal=False, window=None)
 
 
 def _block(cfg: ArchConfig, bp: Block, x, *, window, positions, causal,
@@ -380,9 +380,12 @@ def _decode_qkv(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
     sequence at positions ``pos`` (B,)."""
     B = xq.shape[0]
     dtype, hd = cfg.compute_dtype, cfg.hd
-    q = L.dense(p.wq, xq, dtype).reshape(B, 1, cfg.n_heads, hd)
-    k = L.dense(p.wk, xq, dtype).reshape(B, 1, cfg.n_kv_heads, hd)
-    v = L.dense(p.wv, xq, dtype).reshape(B, 1, cfg.n_kv_heads, hd)
+    H, Hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    q = L.column_whole(p.wq, xq, dtype, H).reshape(B, 1, cfg.n_heads, hd)
+    k = L.column_whole(p.wk, xq, dtype, Hkv).reshape(B, 1, cfg.n_kv_heads,
+                                                     hd)
+    v = L.column_whole(p.wv, xq, dtype, Hkv).reshape(B, 1, cfg.n_kv_heads,
+                                                     hd)
     if cfg.qk_norm:
         q = L.rms_norm_simple(q, p.q_norm)
         k = L.rms_norm_simple(k, p.k_norm)
@@ -419,7 +422,7 @@ def _decode_attn_ring(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bkwd->bkgd", pr, v_ring.float())
     o = o.reshape(B, 1, cfg.n_heads * hd).to(dtype)
-    return L.dense(p.wo, o, dtype), entry
+    return L.row_parallel(p.wo, o, dtype, cfg.n_heads * hd), entry
 
 
 def _decode_attn_paged(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
@@ -457,7 +460,7 @@ def _decode_attn_paged(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
         o = _paged_attention_flash_decode(cfg, q[:, :, 0], k_pages, v_pages,
                                           page_table, pos + 1, mesh)
     o = o.reshape(B, 1, cfg.n_heads * hd)
-    out = L.dense(p.wo, o.to(dtype), dtype)
+    out = L.row_parallel(p.wo, o.to(dtype), dtype, cfg.n_heads * hd)
     return out, {"k_pages": k_pages, "v_pages": v_pages,
                  "page_table": page_table}
 
@@ -467,13 +470,14 @@ def _decode_xattn(cfg: ArchConfig, p: L.Attention, xq: torch.Tensor,
     """Cross-attention for decode in f32; xkv_l: (2, B, Hkv, Senc, hd)."""
     B = xq.shape[0]
     dtype, hd = cfg.compute_dtype, cfg.hd
-    q = L.dense(p.wq, xq, dtype).reshape(B, cfg.n_kv_heads, cfg.group, hd)
+    q = L.column_whole(p.wq, xq, dtype, cfg.n_heads * hd).reshape(
+        B, cfg.n_kv_heads, cfg.group, hd)
     k, v = xkv_l[0], xkv_l[1]
     s = torch.einsum("bkgd,bksd->bkgs", q.float(), k.float()) / math.sqrt(hd)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", pr, v.float())
     o = o.reshape(B, 1, cfg.n_heads * hd).to(dtype)
-    return L.dense(p.wo, o, dtype)
+    return L.row_parallel(p.wo, o, dtype, cfg.n_heads * hd)
 
 
 @torch.no_grad()
@@ -530,10 +534,11 @@ def prefill(cfg: ArchConfig, model: TransformerLM, batch: dict,
         enc_out = encode(cfg, model, batch["enc_frames"])
         dtype, hd = cfg.compute_dtype, cfg.hd
         xkv = []
+        Hkv = cfg.n_kv_heads * hd
         for bp in model.blocks:
-            k = L.dense(bp.xattn.wk, enc_out, dtype).reshape(
+            k = L.column_whole(bp.xattn.wk, enc_out, dtype, Hkv).reshape(
                 B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
-            v = L.dense(bp.xattn.wv, enc_out, dtype).reshape(
+            v = L.column_whole(bp.xattn.wv, enc_out, dtype, Hkv).reshape(
                 B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
             xkv.append(torch.stack([k, v]))
         cache["xkv"] = torch.stack(xkv)

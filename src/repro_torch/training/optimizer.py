@@ -15,7 +15,9 @@ axis, so every norm scale and bias inside a block is decayed there, while
 ``ln_f`` and xLSTM's per-layer blocks' 1-D leaves are not
 (:func:`repro_torch.interop.reference_ndim`).
 
-``pod_compressed_mean`` is the cross-pod gradient mean of the
+``sharded_global_norm`` is the norm of a tensor-parallel step's
+gradients, some of them slices.  ``pod_compressed_mean`` is the cross-pod
+gradient mean of the
 pod-compressed train step: int8 values with one shared f32 scale a tensor
 on the wire, summed exactly in int32 over the ``pod`` axis of a mesh, and
 an error-feedback residual that carries each pod's quantisation error into
@@ -35,7 +37,7 @@ from repro_torch.interop import reference_ndim
 
 __all__ = ["AdamWConfig", "adamw_apply", "adamw_init", "adamw_update",
            "cosine_schedule", "decay_mask", "global_norm",
-           "pod_compressed_mean", "quantize_int8"]
+           "pod_compressed_mean", "quantize_int8", "sharded_global_norm"]
 
 
 # --------------------------------------------------------------- schedule ---
@@ -57,6 +59,23 @@ def global_norm(tensors) -> torch.Tensor:
     """The f32 L2 norm of all of ``tensors`` (an iterable) together."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in tensors))
+
+
+def sharded_global_norm(grads: dict, split, group) -> torch.Tensor:
+    """:func:`global_norm` of gradients of which those named in ``split``
+    are this rank's slices of tensors split over the ranks of ``group``
+    (a tensor-parallel step's): their squares summed over the group, the
+    others (whole and the same on every rank) counted once.  With nothing
+    split it is :func:`global_norm` itself."""
+    import torch.distributed as dist
+
+    if not split:
+        return global_norm(grads.values())
+    sq = sum(torch.sum(torch.square(g.float()))
+             for n, g in grads.items() if n in split)
+    dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq + sum(torch.sum(torch.square(g.float()))
+                               for n, g in grads.items() if n not in split))
 
 
 # ------------------------------------------------------------------ adamw ---
@@ -105,7 +124,7 @@ def quantize_int8(x: torch.Tensor):
 
 @torch.no_grad()
 def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
-                        mesh=None):
+                        mesh=None, split=frozenset()):
     """int8 error-feedback mean over the ``axis`` ranks of ``mesh``
     (default: the active mesh).  ``grads`` and ``ef`` are dicts of tensors
     keyed alike (the gradient and residual of this rank's pod); returns
@@ -114,7 +133,10 @@ def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
     in f32; ``scale`` the largest of the ranks' ``max(|gf|, 1e-12) / 127``
     (an all-reduce MAX); ``q = round(gf / scale)`` (half to even) clipped
     to +-127 as int8; ``q_sum`` its int32 SUM; ``mean = q_sum * scale / n``
-    in the gradient's dtype; ``e' = gf - q * scale``."""
+    in the gradient's dtype; ``e' = gf - q * scale``.  The tensors named
+    in ``split`` are this rank's slices of tensors split over the mesh's
+    ``model`` axis (a tensor-parallel step's), whose scale is the whole
+    tensor's: its max is also taken over ``model``."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import current_mesh
@@ -128,6 +150,9 @@ def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
         # shared scale: one tiny max-reduce, then exact int32 accumulation
         scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
         dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        if name in split:
+            dist.all_reduce(scale, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group("model"))
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         # wire bytes: int8 payload (+ one f32 scale per tensor); gloo and
         # NCCL sum in int32 here, which the int8 range cannot overflow

@@ -13,15 +13,20 @@ does the port.
 Under a mesh (``mesh=`` or the active one) the state is sharded
 (:func:`shard_state` with :func:`state_shardings`): the model's parameters
 and the moments are DTensors, each rank holding the slice the reference's
-``NamedSharding`` gives its mesh coordinate.  Each step gathers the
-parameters into a plain copy of the model that the kernels run on, takes
-the gradients of this rank's slice of the batch (dim 0 split over the mesh
-axes of ``batch``, :func:`batch_shardings`), and sums the loss, the
-metrics and the gradients over those axes, each slice weighted by its
-share of the loss tokens, which gives the reference's global mean; then
-AdamW updates the local shards, the gradient norm taken over the whole
-gradients.  Along ``model`` the compute is replicated, not tensor-parallel:
-every rank of a ``model`` group computes the same gradients.  With
+``NamedSharding`` gives its mesh coordinate.  For the transformer family
+each step gathers the parameters over every mesh axis but ``model`` into a
+local copy of the model (``tensor_parallel.local_copy``: each weight that
+the rule table splits over ``model`` holds this rank's ``model`` shard, no
+rank a whole copy of it) and computes tensor-parallel under
+``tensor_parallel.activate``; hymba and xLSTM gather the parameters whole
+into a plain copy, their compute replicated along ``model``.  The step
+takes the gradients of this rank's slice of the batch (dim 0 split over
+the mesh axes of ``batch``, :func:`batch_shardings`) and sums the loss,
+the metrics and the gradients over those axes, each slice weighted (in
+place) by its share of the loss tokens, which gives the reference's global
+mean; then AdamW updates the local shards, the gradient norm that of the
+whole gradients (``optimizer.sharded_global_norm``: the squares of the
+``model``-split gradients summed over ``model``).  With
 ``pod_compression`` and a ``pod`` axis the step is the reference's
 ``per_pod``: the exact weighted mean over ``data`` within a pod, then
 ``pod_compressed_mean`` over ``pod`` for the gradients (``ef`` in the opt
@@ -44,14 +49,16 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 from repro_torch.models.model import ModelApi, build_model, family_module
 from repro_torch.training import optimizer as opt
 
 TrainState = dict  # {"params": model, "opt": adamw state}
 
-__all__ = ["TrainState", "batch_shardings", "make_train_step",
-           "shard_state", "state_shardings"]
+__all__ = ["TrainState", "batch_shardings", "load_work", "make_train_step",
+           "shard_state", "state_shardings", "tensor_parallel", "work_copy"]
 
 
 def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
@@ -153,20 +160,55 @@ class _BatchSum(torch.autograd.Function):
         return grad * inv_w, None, None
 
 
+def _empty(cfg: ArchConfig, model: nn.Module, device) -> nn.Module:
+    """An empty model of ``cfg``'s class, with ``model``'s learned position
+    table's rows, on ``device`` (the parameters uninitialised)."""
+    _, cls = family_module(cfg)
+    pos = getattr(model, "pos", None)
+    return cls(cfg, max_seq=0 if pos is None else pos.table.shape[0],
+               device=device)
+
+
 def _plain_copy(cfg: ArchConfig, model: nn.Module) -> nn.Module:
     """An empty plain model of ``model``'s class, shapes and dtypes (the
     parameters uninitialised), on its device."""
-    _, cls = family_module(cfg)
-    p0 = next(model.parameters())
-    pos = getattr(model, "pos", None)
-    work = cls(cfg, max_seq=0 if pos is None else pos.table.shape[0],
-               device=p0.device)
+    work = _empty(cfg, model, next(model.parameters()).device)
     want = {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
     got = {n: (tuple(p.shape), p.dtype) for n, p in work.named_parameters()}
     if want != got:
         raise ValueError("the plain copy's parameters differ from the "
                          "sharded model's")
     return work.requires_grad_(True)
+
+
+def tensor_parallel(cfg: ArchConfig) -> bool:
+    """Whether a mesh step of ``cfg`` computes tensor-parallel along
+    ``model`` (the transformer family; hymba and xLSTM gather whole
+    parameters)."""
+    return family_module(cfg)[0] is transformer
+
+
+def work_copy(cfg: ArchConfig, model: nn.Module, mesh) -> nn.Module:
+    """The model a mesh step computes on for the sharded ``model``: a
+    tensor-parallel local copy (:func:`tensor_parallel`) or a plain whole
+    one, empty, ``requires_grad`` on; :func:`load_work` fills it."""
+    if tensor_parallel(cfg):
+        return tp.local_copy(model, mesh,
+                             lambda dev: _empty(cfg, model, dev))
+    return _plain_copy(cfg, model)
+
+
+@torch.no_grad()
+def load_work(cfg: ArchConfig, work: nn.Module, model: nn.Module,
+              mesh) -> None:
+    """Copy the sharded ``model``'s parameters into ``work``
+    (:func:`work_copy`): gathered over every mesh axis but ``model`` for a
+    local copy, whole for a plain one."""
+    wp = dict(work.named_parameters())
+    gather = (lambda p: tp.local_of(p, mesh)) if tensor_parallel(cfg) \
+        else shd.full
+    for n, p in model.named_parameters():
+        wp[n].copy_(gather(p))
 
 
 def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
@@ -177,6 +219,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
     use_pod = adamw.pod_compression and "pod" in names
     rules = shd.current_rules()
     batch_rule = shd._as_tuple(rules.resolve("batch", mesh))
+    par = tensor_parallel(cfg)
     work = {}
 
     def split_axes(B: int) -> tuple:
@@ -198,13 +241,21 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
                 for k, v in batch.items()}
 
     def weighted_sum(tensors, w, axes):
-        """Each of ``tensors`` times ``w``, summed over the ranks of
-        ``axes`` (one all-reduce an axis, in mesh order)."""
-        out = [t * w for t in tensors]
+        """Each of ``tensors`` times ``w`` in place, summed over the ranks
+        of ``axes`` (one all-reduce an axis, in mesh order)."""
+        for t in tensors:
+            t.mul_(w)
         for a in axes:
-            for t in out:
+            for t in tensors:
                 dist.all_reduce(t, group=mesh.get_group(a))
-        return out
+        return tensors
+
+    def shard_of(g, p):
+        """This rank's shard of the gradient ``g`` of the work copy's
+        parameter for the sharded ``p``."""
+        spec = shd.spec_of(p)
+        return shd.local_slice(g, mesh, tp.without_model(spec) if par
+                               else spec)
 
     def train_step(state: TrainState, batch):
         model, ostate = state["params"], state["opt"]
@@ -212,19 +263,20 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
             raise ValueError("a mesh step takes a sharded state: lay it out "
                              "with shard_state(state, state_shardings(...))")
         if work.get("src") is not model:
-            work["src"], work["model"] = model, _plain_copy(cfg, model)
-        plain = work["model"]
-        wp = dict(plain.named_parameters())
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                wp[n].copy_(shd.full(p))
+            work["src"], work["model"] = model, work_copy(cfg, model, mesh)
+            # the gradients that are this rank's model shards
+            work["split"] = frozenset(
+                n for n, p in model.named_parameters()
+                if tp.model_dims(shd.spec_of(p))) \
+                if par and tp.model_group(mesh) is not None else frozenset()
+        load_work(cfg, work["model"], model, mesh)
         axes = split_axes(next(iter(batch.values())).shape[0])
         part = local_batch(batch, axes)
         # the reference's global mean: each slice weighted by its loss
         # tokens; within a pod only over data when pods compress
         data_axes = tuple(a for a in axes if not (use_pod and a == "pod"))
         n_loc = _loss_tokens(part)
-        (n_all,) = weighted_sum([n_loc], 1.0, data_axes)
+        (n_all,) = weighted_sum([n_loc.clone()], 1.0, data_axes)
         w = n_loc / n_all
         n_slices = shd._axis_size(mesh, data_axes)
         moe = contextlib.nullcontext()
@@ -232,28 +284,31 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
             groups = [mesh.get_group(a) for a in data_axes]
             moe = L.moe_batch_stats(
                 lambda t: _BatchSum.apply(t, groups, 1.0 / w), n_slices)
-        with moe:
-            loss, metrics, grads = compute_grads(plain, part)
+        with moe, (tp.activate(mesh) if par else contextlib.nullcontext()):
+            loss, metrics, grads = compute_grads(work["model"], part)
         keys = list(metrics)
-        vals = weighted_sum([loss] + [metrics[k] for k in keys]
-                            + list(grads.values()), w, data_axes)
-        loss, metrics = vals[0], dict(zip(keys, vals[1:1 + len(keys)]))
-        grads = dict(zip(grads, vals[1 + len(keys):]))
+        vals = weighted_sum([loss.clone()]
+                            + [metrics[k].clone() for k in keys], w,
+                            data_axes)
+        loss, metrics = vals[0], dict(zip(keys, vals[1:]))
+        weighted_sum(list(grads.values()), w, data_axes)
         if use_pod:
-            ef = {n: shd.full(e) for n, e in ostate["ef"].items()}
-            grads, ef = opt.pod_compressed_mean(grads, ef, "pod", mesh)
+            ef = {n: tp.local_of(e, mesh) if par else shd.full(e)
+                  for n, e in ostate["ef"].items()}
+            grads, ef = opt.pod_compressed_mean(grads, ef, "pod", mesh,
+                                                split=work["split"])
             with torch.no_grad():
                 for n, e in ostate["ef"].items():
-                    e.to_local().copy_(shd.local_slice(ef[n], mesh,
-                                                       shd.spec_of(e)))
+                    e.to_local().copy_(shard_of(ef[n], e))
             n_pod = shd._size(mesh, "pod")
             vals = weighted_sum([loss] + [metrics[k] for k in keys], 1.0,
                                 ("pod",))
             loss = vals[0] / n_pod
             metrics = {k: v / n_pod for k, v in zip(keys, vals[1:])}
-        gnorm = opt.global_norm(grads.values())
+        model_grp = mesh.get_group("model") if work["split"] else None
+        gnorm = opt.sharded_global_norm(grads, work["split"], model_grp)
         params = {n: p.to_local() for n, p in model.named_parameters()}
-        shards = {n: shd.local_slice(grads[n], mesh, shd.spec_of(p))
+        shards = {n: shard_of(grads[n], p)
                   for n, p in model.named_parameters()}
         local = {"step": ostate["step"],
                  "mu": {n: m.to_local() for n, m in ostate["mu"].items()},
@@ -265,6 +320,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
         metrics = dict(metrics, loss=loss, **om)
         return {"params": model, "opt": ostate}, metrics
 
+    train_step.work = work      # the rank's work copy, for inspection
     return train_step
 
 

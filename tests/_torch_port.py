@@ -4,6 +4,7 @@ JAX package: state conversion to numpy, field-by-field comparison,
 :class:`RtBoth`, the same for the multi-tenant runtime."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -425,32 +426,69 @@ def _local_numpy(tensors: dict) -> dict:
             for n, t in tensors.items()}
 
 
-def _run_mesh_step(shape, names, acfg, tokens, steps, arch="qwen2.5-14b"):
+class _LargestTensor:
+    """A dispatch walk that keeps the most elements of any tensor an op
+    made (a DTensor op's output counts its local tensor; a tensor on
+    ``meta`` holds nothing and is left out)."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        walk = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        t = t.to_local() if hasattr(t, "to_local") else t
+                        if t.device.type != "meta":
+                            walk.numel = max(walk.numel, t.numel())
+                return out
+
+        self.numel, self.mode = 0, Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def _run_mesh_step(shape, names, acfg, tokens, steps, arch="qwen2.5-14b",
+                   **cfg_kw):
     """``steps`` mesh steps of ``arch``'s smoke config on a mesh of
     ``shape``: every rank's metrics, coordinate and local update of each
     parameter (after minus before, f64); the gathered parameters and the
-    opt state's DTensors after the steps."""
+    opt state's DTensors after the steps; the shapes of the step's work
+    copy (``train_step.work``) and the most elements of any tensor the
+    steps made."""
     import numpy as np
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training.train_loop import make_train_step
 
     mesh = make_mesh(shape, names, "cpu")
-    cfg = _dist_cfg(arch)
+    cfg = _dist_cfg(arch, **cfg_kw)
     api, state, _ = _dist_state(cfg, 0, acfg, mesh)
     before = {n: v.astype(np.float64) for n, v in _local_numpy(
         dict(state["params"].named_parameters())).items()}
     step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
     batch = {"tokens": torch.from_numpy(tokens)}
     metrics = []
-    for _ in range(steps):
-        state, m = step(state, batch)
-        metrics.append({k: float(v) for k, v in m.items()})
+    with _LargestTensor() as walk:
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
     after = _local_numpy(dict(state["params"].named_parameters()))
     return mesh, state, {
         "metrics": metrics, "coord": mesh.get_coordinate(),
         "update": {n: after[n] - before[n] for n in after},
-        "params": _gathered_numpy(dict(state["params"].named_parameters()))}
+        "params": _gathered_numpy(dict(state["params"].named_parameters())),
+        "work_shapes": {n: tuple(p.shape) for n, p in
+                        step.work["model"].named_parameters()},
+        "largest": walk.numel}
 
 
 def _check_mesh_step(rank, inp, work):
@@ -478,6 +516,130 @@ def _check_moe_step(rank, inp, work):
                                inp["tokens"], 2, arch="olmoe-1b-7b")
     if rank:
         del out["params"]
+    return out
+
+
+TP_SOFTCAP = 30.0       # gemma3's tensor-parallel check: a logit softcap
+
+
+def _check_tp_gemma3(rank, inp, work):
+    """gemma3-12b's smoke config (window layers, tied vocab-parallel table)
+    with a logit softcap, two steps on a (2, 4) data/model mesh from zero
+    moments."""
+    from repro_torch.training import optimizer as opt
+
+    acfg = opt.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    _, _, out = _run_mesh_step((2, 4), ("data", "model"), acfg,
+                               inp["tokens"], 2, arch="gemma3-12b",
+                               logit_softcap=TP_SOFTCAP)
+    if rank:
+        del out["params"]
+    return out
+
+
+TP_DECODE_STEPS = 4
+# qwen2.5-14b's smoke config with 10 q heads over 5 kv heads of 8: over
+# model 4 a rank's rows of wo are 2.5 heads, so each rank attends on 3 q
+# heads that straddle two GQA groups unaligned (rank 1's [2, 5) use kv
+# heads 1, 1, 2: a kv head a q head)
+TP_STRADDLE = dict(n_heads=10, n_kv_heads=5, head_dim=8)
+TP_CONFIGS = {"qwen2.5-14b": ("qwen2.5-14b", {}),
+              "gemma3-12b": ("gemma3-12b", {"flash_decode_shards": True}),
+              "straddle": ("qwen2.5-14b", TP_STRADDLE)}
+
+
+def _decode_run(cfg, model, prompt, feed=None):
+    """``forward(last_only=True)``'s logits of ``prompt`` (B, S), then
+    ``prefill``'s and TP_DECODE_STEPS decode steps' (as numpy), each step
+    fed the argmax of ``feed``'s logits of the step before (this run's own
+    where ``feed`` is None)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    batch = {"tokens": torch.from_numpy(prompt)}
+    with torch.no_grad():
+        fwd, _ = T.forward(cfg, model, batch, last_only=True)
+        logits, cache = T.prefill(cfg, model, batch, 64)
+        steps = [logits.numpy()]
+        for i in range(TP_DECODE_STEPS):
+            tok = (feed or steps)[i].argmax(-1)
+            logits, cache = T.decode_step(cfg, model, cache,
+                                          torch.from_numpy(tok))
+            steps.append(logits.numpy())
+    return {"forward": fwd[:, 0].numpy(), "steps": steps}
+
+
+def _straddle_step(tokens, mesh=None):
+    """One train step of the ``straddle`` config from zero moments, plain
+    or on ``mesh``: its metrics and the parameters gathered after it."""
+    import torch
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+
+    acfg = opt.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    cfg = _dist_cfg("qwen2.5-14b", **TP_STRADDLE)
+    api, state, _ = _dist_state(cfg, 0, acfg, mesh)
+    state, met = make_train_step(cfg, api, adamw=acfg, mesh=mesh)(
+        state, {"tokens": torch.from_numpy(tokens)})
+    params = dict(state["params"].named_parameters())
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "params": (_gathered_numpy(params) if mesh is not None else
+                       {n: p.detach().numpy().copy()
+                        for n, p in params.items()})}
+
+
+def tp_plain_runs(prompt, tokens) -> dict:
+    """The plain path of what ``_check_tp_decode`` runs tensor-parallel,
+    once in the test process (every rank would make the same): each of
+    TP_CONFIGS' :func:`_decode_run` from ``api.init(0)``, and the
+    ``straddle`` config's :func:`_straddle_step` under ``train``."""
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for key, (arch, kw) in TP_CONFIGS.items():
+        cfg = _dist_cfg(arch, **kw)
+        out[key] = _decode_run(cfg, build_model(cfg, "cpu").init(0), prompt)
+    out["train"] = _straddle_step(tokens)
+    return out
+
+
+def _check_tp_decode(rank, inp, work):
+    """TP_CONFIGS' smoke models (gemma3-12b with ``flash_decode_shards``),
+    tensor-parallel on the (2, 4) mesh from the mesh step's work copy of
+    the sharded parameters: ``forward(last_only=True)``'s logits,
+    ``prefill``'s and TP_DECODE_STEPS decode steps' (each fed the plain
+    path's argmax, ``inp["tp_plain"]`` from :func:`tp_plain_runs`); the
+    local copy's parameter shapes; and the ``straddle`` config's train
+    step on the mesh."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.interop import param_axes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import (load_work, shard_state,
+                                                 work_copy)
+
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    out = {}
+    for key, (arch, kw) in TP_CONFIGS.items():
+        cfg = _dist_cfg(arch, **kw)
+        api = build_model(cfg, "cpu")
+        sharded = api.init(0)
+        sh = shd.param_shardings(param_axes(sharded), mesh,
+                                 shapes=dict(sharded.named_parameters()))
+        sharded = shard_state({"params": sharded, "opt": {}},
+                              {"params": sh})["params"]
+        local = work_copy(cfg, sharded, mesh).requires_grad_(False)
+        load_work(cfg, local, sharded, mesh)
+        with tp.activate(mesh), (shd.activate(mesh)
+                                 if cfg.flash_decode_shards
+                                 else contextlib.nullcontext()):
+            out[key] = _decode_run(cfg, local, inp["prompt"],
+                                   inp["tp_plain"][key]["steps"])
+        out[key]["work_shapes"] = {n: tuple(p.shape) for n, p in
+                                   local.named_parameters()}
+    out["train"] = _straddle_step(inp["tokens"], mesh)
     return out
 
 
@@ -659,6 +821,7 @@ DIST_CHECKS = {
     "pod_step": _check_pod_step,
     "reshard": _check_reshard, "jax_checkpoint": _check_jax_checkpoint,
     "flash_decode": _check_flash_decode, "decode_step": _check_decode_step,
+    "tp_gemma3": _check_tp_gemma3, "tp_decode": _check_tp_decode,
     "gpipe": _check_gpipe, "pod_mean": _check_pod_mean,
     "launch_train": _check_launch_train,
 }

@@ -227,7 +227,8 @@ def test_dryrun_cells_of_every_kind():
     on (2, 4): the reference's keys, the roofline's chips the mesh's, the
     decode cache aliased, a pure full-attention model skipped at
     long_500k; ``flash_decode_shards`` splits the pools, and its decode
-    all-reduces over model."""
+    all-reduces more over model than the tensor-parallel decode without
+    it."""
     with dryrun.fake_process_group(8):
         for arch in ("gemma3_1b", "hymba_1_5b"):
             for shape in ("prefill_32k", "decode_32k"):
@@ -256,8 +257,10 @@ def test_dryrun_cells_of_every_kind():
             mesh_shape=(2, 4))
         assert split["memory"]["argument_bytes"] < \
             whole["memory"]["argument_bytes"]
-        assert split["hlo"]["coll_bytes"]["all-reduce"] > 0
-        assert "all-reduce" not in whole["hlo"]["coll_bytes"]
+        # the tensor-parallel decode all-reduces over model in both; the
+        # shard-local attention's combine adds its own
+        assert split["hlo"]["coll_bytes"]["all-reduce"] > \
+            whole["hlo"]["coll_bytes"]["all-reduce"] > 0
         assert "skipped" in dryrun.run_cell("qwen2_5_14b", "long_500k",
                                             False)
 

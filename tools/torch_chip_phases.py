@@ -3,8 +3,8 @@
 
     python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
         [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
-        [mesh_train:gemma3-1b] [flash_decode_shards] [dryrun] [--seed 0]
-        [--profile]
+        [mesh_train:gemma3-1b] [flash_decode_shards] [mesh_tp:gemma3-1b]
+        [dryrun] [--seed 0] [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
 against its plain version), ``attn_bwd`` the flash backward's (and the
@@ -13,7 +13,9 @@ backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
 more step) and ``train_ckpt`` the training phases,
 ``mesh_train:gemma3-1b`` and ``flash_decode_shards`` the mesh phases (on
 a world-1 NCCL group, started for them and ended after; ``--profile``
-traces 16 decode steps with and without the mesh), ``dryrun`` the dry
+traces 16 decode steps with and without the mesh), ``mesh_tp:gemma3-1b``
+the tensor-parallel train step in two processes sharing the card over
+gloo, held against the plain steps, ``dryrun`` the dry
 run's child process held against ``mesh_train:gemma3-1b``'s peak (which it
 runs beside the child when it has not run yet), ``serve:ARCH`` a
 serving phase of
@@ -84,6 +86,12 @@ def main() -> int:
                                   dev, args.seed, attn, args.profile))
             finally:
                 cs.stop_world1()
+        elif phase == "mesh_tp:gemma3-1b":
+            child = cs.start_mesh_tp(args.seed)
+            try:
+                out[phase] = cs.mesh_tp_phase(child)
+            finally:
+                cs.stop_children(child[0])
         elif phase == "dryrun":
             child = cs.start_dryrun()
             try:

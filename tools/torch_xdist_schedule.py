@@ -10,7 +10,7 @@ The rule replayed is xdist's ``LoadScopeScheduling`` with its default
 ``--loadscope-reorder``: the files are queued by their test count, most
 first (collection order among equal counts); each worker takes one file
 at the start and then the next one in the queue whenever its pending tests
-fall to 2 or fewer.  Each test takes its junit time; worker start-up and
+fall to 2 or fewer, the workers' test completions taken in time order.  Each test takes its junit time; worker start-up and
 collection are left out, so the replayed wall is shorter than the real
 one by about a minute.  For each junit file it prints each worker's files
 with the time it took them, when ``tests/test_oracle.py`` starts and the
@@ -51,7 +51,9 @@ def replay(files: dict, workers: int) -> list:
         if queue and len(w["pending"]) <= 2:
             take(w)
     while any(w["pending"] for w in state):
-        w = min((w for w in state if w["pending"]), key=lambda w: w["t"])
+        # the next test to complete, over all workers, in time order
+        w = min((w for w in state if w["pending"]),
+                key=lambda w: w["t"] + w["pending"][0])
         w["t"] += w["pending"].pop(0)
         if queue and len(w["pending"]) <= 2:
             take(w)
