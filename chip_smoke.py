@@ -74,7 +74,7 @@ Phases, each of which must pass or the script exits non-zero:
    5e-4, four simulated Optane P5800X.  Q1-Q6 through ``run_query``: every
    gathered value equal to the host column bit for bit, each value within
    1e-4 relative of ``run_query_baseline``; then three ``scan_column``
-   passes over the first 2^26 rows of ``trip_dist`` (an array of their
+   passes over the first 2^24 rows of ``trip_dist`` (an array of their
    own, cut for the run's time) at 65,536 rows a wavefront (demand only,
    readahead of 512 lines, readahead with 4 tokens in flight): one
    checksum, numpy's within 1e-5 relative, readahead raising the hit rate
@@ -111,12 +111,12 @@ Phases, each of which must pass or the script exits non-zero:
    under a fault model, partitioned and shared, on the card and on the
    CPU: every op's outputs and ``RuntimeState`` and every drain's
    ``Completions`` (the weighted-fair stream) bit-identical;
-9. serving: qwen2.5-14b at full width in bf16, its depth cut to 24 of its
+9. serving: qwen2.5-14b at full width in bf16, its depth cut to 16 of its
    48 layers for the script's time (``SERVE_DEPTH``; random weights from
    ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
    512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
    32 new tokens each; every request done, pages spilled and fetched, and
-   ``paged_attention`` launched 24 times per engine step;
+   ``paged_attention`` launched 16 times per engine step;
 10. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
@@ -126,9 +126,9 @@ Phases, each of which must pass or the script exits non-zero:
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
    flash, which must have run) within atol 0.15 (``DVF_LIMITS``);
 12. serving the model families at full width and depth in bf16, each
-   model freed before the next (``SERVE``): gemma3-12b (cut to 24 of its
-   48 layers for the script's time, ``SERVE_DEPTH``: 20 sliding-window
-   rings and 4 paged layers at ``max_seq`` 1280; 8 requests of 1030-1150
+   model freed before the next (``SERVE``): gemma3-12b (cut to 16 of its
+   48 layers for the script's time, ``SERVE_DEPTH``: 14 sliding-window
+   rings and 2 paged layers at ``max_seq`` 1280; 8 requests of 1030-1150
    prompt tokens, past the 1024-token window, 16 new tokens,
    ``keep_last`` 512) and olmoe-1b-7b (16 MoE layers of 64 experts, top
    8; 8 requests of 200-400 tokens, 32 new, ``keep_last`` 128, max_seq
@@ -185,20 +185,26 @@ Phases, each of which must pass or the script exits non-zero:
    ``prefill`` with ``flash_decode_shards`` under the mesh, the pools
    split on the page axis, logits bit-identical to the plain decode and
    every paged launch the lse variant);
-16. tensor parallelism on one card (``mesh_tp:gemma3-1b``): NCCL takes
-   one rank a device, so two processes, started before the mesh phases,
-   wait off the card until the mesh phases' timed work is done, then run
-   beside the dry run's wait and share the card in a gloo group on CUDA
-   tensors as a
-   (1, 2) data/model mesh; ``mesh_train``'s cell, 3 tensor-parallel steps
+16. tensor parallelism on one card (``mesh_tp:gemma3-1b``,
+   ``mesh_tp:hymba-1.5b``, ``mesh_tp:xlstm-1.3b``; ``MESH_TP_CELLS``): NCCL
+   takes one rank a device, so two processes, started before the mesh
+   phases, wait off the card until the mesh phases' timed work is done,
+   then run beside the dry run's wait and share the card in a gloo group
+   on CUDA tensors as a (1, 2) data/model mesh, one cell after another,
+   each at full width, depth cut, f32: ``mesh_train``'s gemma3-1b cell
    (each rank 2 of the 4 q heads, the kv projection's columns gathered to
-   the one kv head, half of the MLP and of the tied vocabulary), rank 0's
-   losses, gradient norms and gathered parameters within ``STEP_TOL``
-   (2e-3) of 3 plain steps on the card, each parameter's update within
-   ``UPDATE_TOL`` (1e-4) of the plain steps' in relative norm; both ranks
-   launch the flash forward and its f32 ``simt`` backward, on 2 q heads
-   only; each rank's local weight shapes, ms a step and peak bytes
-   printed;
+   the one kv head, half of the MLP and of the tied vocabulary);
+   hymba-1.5b at 6 layers (global {0, 3, 5}), B 2, S 1024 after the 128
+   meta tokens (the window of 1024 masks), half of d_inner a rank (xm's
+   and z's columns of ``mamba.w_in`` cut from both ranks' blocks) and 13
+   of the 25 q heads; xlstm-1.3b at 8 layers (the sLSTM at 7), B 2, S 256,
+   half of each inner dimension, 2 of the 4 heads.  3 tensor-parallel
+   steps each; rank 0's losses, gradient norms and gathered parameters
+   within ``STEP_TOL`` (2e-3) of 3 plain steps on the card, each
+   parameter's update within ``UPDATE_TOL`` (1e-4) of the plain steps' in
+   relative norm; both ranks launch the flash forward and its f32
+   ``simt`` backward on the cell's q heads only (xLSTM neither); each
+   rank's local weight shapes, ms a step and peak bytes printed;
 17. the dry run (``dryrun``): one child process, with no card, started
    before the mesh phases and run beside them on one core, runs
    ``repro_torch.launch.dryrun.run_cell`` on a fake process group of 256
@@ -234,6 +240,7 @@ import argparse
 import datetime
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1560,7 +1567,7 @@ def slice_phase(dev, log2_nodes, seed, counters, profile=False):
 # --------------------------------------------------------------- phase 6 --
 TAXI_ROWS = 1 << 27           # cut from the paper's 1.7B rows
 TAXI_WAVE = 65536             # rows a scan wavefront: 512 lines of 512 B
-TAXI_SCAN_ROWS = 1 << 26      # the scans' rows, cut for the run's time
+TAXI_SCAN_ROWS = 1 << 24      # the scans' rows, cut for the run's time
 
 
 def column_like(arr, st, data, device, prefetch=None):
@@ -2497,10 +2504,11 @@ SERVE = {
     "xlstm-1.3b": ((200, 400), 32, 128, 512, (150, 183)),
 }
 # Depth cuts of the served deployments, for the script's time (the
-# training phases came after them), widths unchanged: qwen2.5-14b serves 24
-# of its 48 layers, every one paged; gemma3-12b 24 of its 48, 20 rings and
-# 4 paged layers, its prompts still past the 1024-token window.
-SERVE_DEPTH = {"qwen2.5-14b": 24, "gemma3-12b": 24}
+# training and tensor-parallel phases came after them), widths unchanged:
+# qwen2.5-14b serves 16 of its 48 layers, every one paged; gemma3-12b 16 of
+# its 48, 14 rings and 2 paged layers, its prompts still past the
+# 1024-token window.
+SERVE_DEPTH = {"qwen2.5-14b": 16, "gemma3-12b": 16}
 
 
 def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
@@ -3672,33 +3680,338 @@ UPDATE_TOL = 1e-4    # each parameter's update against the plain step's,
 MESH_TP_GO_TIMEOUT_S = 900
 
 
-def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
-    """One rank of ``mesh_tp:gemma3-1b`` (see :func:`mesh_tp_phase`), in a
-    process of its own: a gloo group of MESH_TP_WORLD ranks on the one
-    card (met through a FileStore), ``mesh_train``'s cell on a (1, 2)
-    data/model mesh.  It starts the group, then waits for the file ``go``
-    (:func:`release_mesh_tp`) before it does any work on the card, so it
-    can start beside timed phases without running beside them.  Then
-    MESH_TRAIN_STEPS tensor-parallel steps with the launch counts set to 0
-    before them and read after, the flash kernels' q head counts recorded
-    on the way; the updated parameters gathered over ``model``.  Rank 0
-    then runs as many plain steps from the same seed and batches and holds
-    the losses, gradient norms and parameters within STEP_TOL, and each
-    parameter's update within UPDATE_TOL of the plain steps' in relative
-    norm.  Returns the rank's record (printed as JSON)."""
+# the cells of ``mesh_tp`` in the order the ranks run them: full width,
+# depth cut, f32 (TF32 off); B, S; the q heads each rank's flash kernels
+# run on (None: no attention); the local weights recorded; AdamW's
+# ``eps`` where it is not mesh_train's 1e-8; ``per_step``: each step held
+# alone against a plain step from the same state, not chained; and the
+# largest relative error of an update in norm against the plain steps'.
+#
+# Why hymba and xLSTM differ from gemma3-1b (tools/torch_tp_floor.py and
+# this phase on an NVIDIA H100 80GB HBM3 at 700.00 W): two plain
+# runs that differ only in the order of their sums (the batch in 2
+# microbatches) drift apart by more than UPDATE_TOL.  hymba: 1.21e-4 over
+# 3 chained steps at eps 1e-8, where Adam's first update lr * g / (|g| +
+# eps) gives gradients of rounding size (|g| near eps) a sizeable step;
+# at eps 1e-6 3.42e-5 (the tensor-parallel steps 3.46e-5).  xLSTM: its
+# gradients at full width are ill-conditioned (the mLSTM's max(|den|,
+# exp(-m)) and the gates' max stabilisers switch branch on rounding):
+# the microbatched first step's gradient norm is 5.3e-4 off, and chained
+# steps diverge (gradient norm 54.7 against 65.7 at step 3, updates 0.42
+# off at eps 1e-8, 7.0e-3 even at eps 1e-3); held a step at a time from
+# the same state, the tensor-parallel updates were 7.8e-3 off at eps 1e-6
+# (the microbatched step 7.4e-3), the losses 1.9e-6 and the gradient
+# norms 9.7e-3.  Planted faults (z from the rank's own block, a dropped
+# w_bc or w_if reduction) are 1.3-1.7 off on the CPU
+# (tests/test_torch_tp_recurrent.py).
+MESH_TP_CELLS = {
+    "gemma3-1b": dict(layers=6, B=4, S=1024, q_heads=2, per_step=False,
+                      update_tol=UPDATE_TOL,
+                      shapes=("embed.table", "blocks.0.attn.wq.w",
+                              "blocks.0.attn.wk.w", "blocks.0.attn.wo.w",
+                              "blocks.0.mlp.w1.w", "blocks.0.mlp.w2.w")),
+    # global layers {0, 3, 5}; 1024 tokens after the 128 meta tokens, so
+    # the 1024 window masks on the others; 25 q heads over 2 ranks: 12.5
+    # heads of wo's rows a rank, so 13 q heads across the GQA groups
+    "hymba-1.5b": dict(layers=6, B=2, S=1024, q_heads=13, eps=1e-6,
+                       per_step=False, update_tol=UPDATE_TOL,
+                       shapes=("blocks.0.mamba.w_in", "blocks.0.mamba.w_dt",
+                               "blocks.0.mamba.w_bc", "blocks.0.mamba.w_out",
+                               "blocks.0.attn.wq.w", "blocks.0.attn.wk.w")),
+    # 7 mLSTM blocks and the sLSTM at layer 7; 4 heads, 2 a rank
+    "xlstm-1.3b": dict(layers=8, B=2, S=256, q_heads=None, eps=1e-6,
+                       per_step=True, update_tol=3e-2,
+                       shapes=("blocks.0.w_up.w", "blocks.0.w_if.w",
+                               "blocks.0.w_down.w", "blocks.7.w_in.w",
+                               "blocks.7.r", "blocks.7.w_down.w")),
+}
+
+
+def mesh_tp_adamw(arch: str):
+    """The AdamW settings of ``MESH_TP_CELLS[arch]``: ``mesh_train``'s,
+    with the cell's ``eps`` where it sets one."""
+    from repro_torch.training import optimizer as opt
+
+    return opt.AdamWConfig(lr=3e-3, warmup=10, total_steps=MESH_TRAIN_STEPS,
+                           eps=MESH_TP_CELLS[arch].get("eps", 1e-8))
+
+
+def _gather_model(tensors: dict, group) -> dict:
+    """Each DTensor of ``tensors`` (name -> DTensor on the (1,
+    MESH_TP_WORLD) mesh) whole: its local shard gathered over ``model`` on
+    each dimension its spec splits there."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+
+    out = {}
+    with torch.no_grad():
+        for n, p in tensors.items():
+            x = p.to_local()
+            for d in tp.model_dims(shd.spec_of(p)):
+                parts = [torch.empty_like(x) for _ in range(MESH_TP_WORLD)]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                x = torch.cat(parts, d)
+            out[n] = x
+    return out
+
+
+def _held_to_plain(arch, metrics, pm, full, plain_params, init) -> dict:
+    """The tensor-parallel ``metrics`` and gathered parameters ``full``
+    against the plain steps' ``pm`` and ``plain_params``, both from the
+    parameters ``init`` (f64): losses and gradient norms and parameters
+    within STEP_TOL, each parameter's update within ``update_tol`` in relative
+    norm (the cell's ``update_tol``; raises otherwise).  Returns the
+    largest differences."""
+    import torch
+
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        got = torch.tensor([m[k] for m in metrics], dtype=torch.float64)
+        want = torch.tensor([m[k] for m in pm], dtype=torch.float64)
+        if not torch.allclose(got, want, **STEP_TOL):
+            raise AssertionError(f"mesh_tp:{arch}: {k} {got.tolist()} "
+                                 f"against plain {want.tolist()}")
+        errs[k] = float((got - want).abs().max())
+    worst, bad, upd = 0.0, [], {}
+    with torch.no_grad():
+        for n, p in plain_params.items():
+            f = full[n].to(p.device)
+            if not torch.allclose(f, p, **STEP_TOL):
+                bad.append(n)
+            worst = max(worst, float((f - p).abs().max()))
+            i = init[n].to(p.device)
+            want = p.double() - i
+            upd[n] = float((f.double() - i - want).norm()
+                           / want.norm().clamp(min=1e-30))
+    if bad:
+        raise AssertionError(f"mesh_tp:{arch}: parameters beyond STEP_TOL "
+                             f"of the plain steps: {bad}")
+    top = sorted(upd.items(), key=lambda kv: -kv[1])[:4]
+    tol = MESH_TP_CELLS[arch]["update_tol"]
+    if top[0][1] > tol:
+        raise AssertionError(f"mesh_tp:{arch}: updates beyond {tol} of the "
+                             f"plain steps' in relative norm: {top}")
+    return dict(metric_errs=errs, param_max_abs_err=worst,
+                update_rel_errs=top)
+
+
+def _per_step_errs(arch, state, plain, before, mesh) -> dict:
+    """One ``per_step`` comparison (see :func:`mesh_tp_cell`): this rank's
+    shards of the tensor-parallel parameters after a step against the
+    same slices of the plain parameters after the plain step from the
+    same state ``before``, within STEP_TOL, and each parameter's update
+    against the plain one's in relative norm (the squares summed over the
+    ranks' shards, a parameter whole on every rank counted once), within
+    the cell's ``update_tol``.  Raises otherwise; returns the largest
+    absolute difference and the four largest relative errors."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+
+    names, sq, worst, bad = [], [], 0.0, []
+    own = mesh.get_local_rank("model") == 0
+    pp = dict(plain["params"].named_parameters())
+    with torch.no_grad():
+        for n, p in state["params"].named_parameters():
+            spec = shd.spec_of(p)
+            got = p.to_local()
+            want = shd.local_slice(pp[n].detach(), mesh, spec)
+            start = shd.local_slice(before[n], mesh, spec)
+            if not torch.allclose(got, want, **STEP_TOL):
+                bad.append(n)
+            worst = max(worst, float((got - want).abs().max()))
+            count = own or bool(tp.model_dims(spec))
+            d = (got.double() - want.double()).square().sum()
+            u = (want.double() - start.double()).square().sum()
+            names.append(n)
+            sq.append(torch.stack([d, u]) * count)
+    sq = torch.stack(sq)
+    dist.all_reduce(sq, group=mesh.get_group("model"))
+    if bad:
+        raise AssertionError(f"mesh_tp:{arch}: parameters beyond STEP_TOL "
+                             f"of the plain step: {bad}")
+    rel = (sq[:, 0] / sq[:, 1].clamp(min=1e-60)).sqrt().tolist()
+    top = sorted(zip(names, rel), key=lambda kv: -kv[1])[:4]
+    tol = MESH_TP_CELLS[arch]["update_tol"]
+    if top[0][1] > tol:
+        raise AssertionError(f"mesh_tp:{arch}: updates beyond {tol} of the "
+                             f"plain step's in relative norm: {top}")
+    return dict(param_max_abs_err=worst, update_rel_errs=top)
+
+
+def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
+    """One cell of ``MESH_TP_CELLS`` on this rank (see
+    :func:`mesh_tp_rank`): MESH_TRAIN_STEPS tensor-parallel steps on a (1,
+    MESH_TP_WORLD) data/model mesh, the launch counts set to 0 before each
+    and read after it, the flash kernels' q head counts recorded on the
+    way, held against as many plain steps from the same seed and batches:
+    the losses and gradient norms within STEP_TOL, the parameters within
+    STEP_TOL and each parameter's update within the cell's ``update_tol``
+    in relative norm.  Chained: rank 0 runs the plain steps after the
+    tensor-parallel ones and holds them against the parameters gathered
+    at the end.  ``per_step``: every rank runs each plain step beside the
+    tensor-parallel one from the same state and holds its shards against
+    the plain step's slices (:func:`_per_step_errs`), then loads the plain
+    state's slices into its shards, so each step is held alone (xLSTM's
+    rounding differences grow over chained steps: see MESH_TP_CELLS)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.interop import param_axes
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import (make_train_step,
                                                  shard_state,
                                                  state_shardings)
+
+    cell = MESH_TP_CELLS[arch]
+    B, S = cell["B"], cell["S"]
+    cfg = get_config(arch).replace(n_layers=cell["layers"], dtype="float32")
+    api = build_model(cfg, dev)
+    acfg = mesh_tp_adamw(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+               for _ in range(MESH_TRAIN_STEPS)]
+
+    def fresh():
+        model = api.init(seed, S).requires_grad_(True)
+        return {"params": model, "opt": opt.adamw_init(model, acfg)}
+
+    heads = {"fwd": set(), "bwd": set()}
+    fwd, bwd = ops.flash_attention_cuda, ops.flash_attention_bwd_cuda
+
+    def fwd_heads(q, *a, **kw):
+        heads["fwd"].add(q.shape[1])
+        return fwd(q, *a, **kw)
+
+    def bwd_heads(q, *a, **kw):
+        heads["bwd"].add(q.shape[1])
+        return bwd(q, *a, **kw)
+
+    mesh = make_mesh((1, MESH_TP_WORLD), ("data", "model"), "cuda")
+    group = mesh.get_group("model")
+    state = fresh()
+    state = shard_state(state, state_shardings(
+        cfg, param_axes(state["params"]), mesh, state["params"], acfg))
+    step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
+    per_step = cell["per_step"]
+    plain = fresh() if per_step else None
+    pstep = make_train_step(cfg, api, adamw=acfg) \
+        if per_step or rank == 0 else None
+    plain_bytes = sum(t.numel() * t.element_size() for t in (
+        list(plain["params"].parameters()) + list(plain["opt"]["mu"].values())
+        + list(plain["opt"]["nu"].values()))) if per_step else 0
+    counters = train_counters()
+    launches = {k: 0 for k in counters}
+    metrics, times, peaks, pm, held = [], [], [], [], []
+    for t, b in enumerate(batches):
+        dist.barrier()
+        for c in counters.values():
+            c.n = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = \
+            fwd_heads, bwd_heads
+        try:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        finally:
+            ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = fwd, bwd
+        for k, c in counters.items():
+            launches[k] += c.n
+        # a per-step cell holds the plain state beside the step's: leave
+        # it out of the step's peak
+        peaks.append(torch.cuda.max_memory_allocated() - plain_bytes)
+        if not per_step:
+            continue
+        before = {n: p.detach().clone() for n, p in
+                  plain["params"].named_parameters()}
+        plain, pmt = pstep(plain, b)
+        pm.append({k: float(v) for k, v in pmt.items()})
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(metrics[-1][k], pm[-1][k],
+                                rel_tol=STEP_TOL["rtol"],
+                                abs_tol=STEP_TOL["atol"]):
+                raise AssertionError(f"mesh_tp:{arch} step {t}: {k} "
+                                     f"{metrics[-1][k]} against plain "
+                                     f"{pm[-1][k]}")
+        held.append(_per_step_errs(arch, state, plain, before, mesh))
+        held[-1]["metric_errs"] = {k: abs(metrics[-1][k] - pm[-1][k])
+                                   for k in ("loss", "grad_norm")}
+        del before
+        with torch.no_grad():           # the next step from the same state
+            pp = dict(plain["params"].named_parameters())
+            for n, p in state["params"].named_parameters():
+                p.to_local().copy_(shd.local_slice(pp[n].detach(), mesh,
+                                                   shd.spec_of(p)))
+            for k in ("mu", "nu"):
+                for n, x in state["opt"][k].items():
+                    x.to_local().copy_(shd.local_slice(
+                        plain["opt"][k][n], mesh, shd.spec_of(x)))
+    local = {n: list(p.shape) for n, p in
+             step.work["model"].named_parameters()}
+    r = dict(losses=[m["loss"] for m in metrics],
+             grad_norms=[m["grad_norm"] for m in metrics],
+             step_s=times, ms_per_step=statistics.median(times) * 1e3,
+             peak_bytes=max(peaks), launches=launches,
+             q_heads={k: sorted(v) for k, v in heads.items()},
+             local_shapes={n: local[n] for n in cell["shapes"]},
+             compared="each step from the same state" if per_step
+             else "chained", adamw_eps=acfg.eps)
+    full = None if per_step else _gather_model(
+        dict(state["params"].named_parameters()), group)
+    del state, step, plain
+    if rank == 0 and not per_step:
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = fresh()
+        init = {n: p.detach().double() for n, p in
+                plain["params"].named_parameters()}
+        for b in batches:
+            plain, m = pstep(plain, b)
+            pm.append({k: float(v) for k, v in m.items()})
+        held.append(_held_to_plain(
+            arch, metrics, pm, full,
+            dict(plain["params"].named_parameters()), init))
+        del plain, init
+    if held:
+        r.update(plain_losses=[m["loss"] for m in pm],
+                 plain_grad_norms=[m["grad_norm"] for m in pm],
+                 metric_errs={k: max(h["metric_errs"][k] for h in held)
+                              for k in ("loss", "grad_norm")},
+                 param_max_abs_err=max(h["param_max_abs_err"]
+                                       for h in held),
+                 update_rel_errs=sorted(
+                     (e for h in held for e in h["update_rel_errs"]),
+                     key=lambda kv: -kv[1])[:4])
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return r
+
+
+def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
+    """One rank of ``mesh_tp`` (see :func:`mesh_tp_phase`), in a process
+    of its own: a gloo group of MESH_TP_WORLD ranks on the one card (met
+    through a FileStore).  It starts the group, then waits for the file
+    ``go`` (:func:`release_mesh_tp`) before it does any work on the card,
+    so it can start beside timed phases without running beside them; then
+    each cell of MESH_TP_CELLS in turn (:func:`mesh_tp_cell`).  Returns
+    the rank's records (printed as JSON)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3709,6 +4022,7 @@ def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
     dist.init_process_group("gloo", store=dist.FileStore(store, MESH_TP_WORLD),
                             rank=rank, world_size=MESH_TP_WORLD,
                             timeout=datetime.timedelta(seconds=180))
+    out = {"rank": rank, "cells": {}}
     try:
         deadline = time.monotonic() + MESH_TP_GO_TIMEOUT_S
         while not pathlib.Path(go).exists():
@@ -3717,123 +4031,15 @@ def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
                                    f"{MESH_TP_GO_TIMEOUT_S} s")
             time.sleep(0.05)
         t_go = time.perf_counter()
-        B, S = 4, 1024
-        cfg = get_config("gemma3-1b").replace(n_layers=6, dtype="float32")
-        api = build_model(cfg, dev)
-        acfg = opt.AdamWConfig(lr=3e-3, warmup=10,
-                               total_steps=MESH_TRAIN_STEPS)
-        gen = torch.Generator(device=dev).manual_seed(seed + 11)
-        batches = [{"tokens": torch.randint(0, cfg.vocab, (B, S),
-                                            generator=gen, device=dev,
-                                            dtype=torch.int32)}
-                   for _ in range(MESH_TRAIN_STEPS)]
-
-        def fresh():
-            model = api.init(seed, S).requires_grad_(True)
-            return {"params": model, "opt": opt.adamw_init(model, acfg)}
-
-        heads = {"fwd": set(), "bwd": set()}
-        fwd, bwd = ops.flash_attention_cuda, ops.flash_attention_bwd_cuda
-
-        def fwd_heads(q, *a, **kw):
-            heads["fwd"].add(q.shape[1])
-            return fwd(q, *a, **kw)
-
-        def bwd_heads(q, *a, **kw):
-            heads["bwd"].add(q.shape[1])
-            return bwd(q, *a, **kw)
-
-        mesh = make_mesh((1, MESH_TP_WORLD), ("data", "model"), "cuda")
-        state = fresh()
-        state = shard_state(state, state_shardings(
-            cfg, param_axes(state["params"]), mesh, state["params"], acfg))
-        step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
-        metrics, times = [], []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = \
-            fwd_heads, bwd_heads
-        try:
-            counters = train_counters()
-            for c in counters.values():
-                c.n = 0
-            for b in batches:
-                t0 = time.perf_counter()
-                state, m = step(state, b)
-                metrics.append({k: float(v) for k, v in m.items()})
-                times.append(time.perf_counter() - t0)
-            launches = {k: c.n for k, c in counters.items()}
-        finally:
-            ops.flash_attention_cuda, ops.flash_attention_bwd_cuda = fwd, bwd
-        peak = torch.cuda.max_memory_allocated()
-        local = {n: list(p.shape) for n, p in
-                 step.work["model"].named_parameters()}
-        group = mesh.get_group("model")
-        full = {}
-        with torch.no_grad():
-            for n, p in state["params"].named_parameters():
-                x = p.to_local()
-                for d in tp.model_dims(shd.spec_of(p)):
-                    parts = [torch.empty_like(x) for _ in
-                             range(MESH_TP_WORLD)]
-                    dist.all_gather(parts, x.contiguous(), group=group)
-                    x = torch.cat(parts, d)
-                full[n] = x
-        r = dict(rank=rank, losses=[m["loss"] for m in metrics],
-                 grad_norms=[m["grad_norm"] for m in metrics],
-                 step_s=times, ms_per_step=statistics.median(times) * 1e3,
-                 peak_bytes=peak, launches=launches,
-                 q_heads={k: sorted(v) for k, v in heads.items()},
-                 local_shapes={n: local[n] for n in (
-                     "embed.table", "blocks.0.attn.wq.w",
-                     "blocks.0.attn.wk.w", "blocks.0.attn.wo.w",
-                     "blocks.0.mlp.w1.w", "blocks.0.mlp.w2.w")})
-        del state, step
-        if rank == 0:
-            gc.collect()
-            torch.cuda.empty_cache()
-            plain, pm = fresh(), []
-            init = {n: p.detach().double() for n, p in
-                    plain["params"].named_parameters()}
-            pstep = make_train_step(cfg, api, adamw=acfg)
-            for b in batches:
-                plain, m = pstep(plain, b)
-                pm.append({k: float(v) for k, v in m.items()})
-            errs = {}
-            for k in ("loss", "grad_norm"):
-                got = torch.tensor([m[k] for m in metrics], dtype=torch.float64)
-                want = torch.tensor([m[k] for m in pm], dtype=torch.float64)
-                if not torch.allclose(got, want, **STEP_TOL):
-                    raise AssertionError(f"mesh_tp: {k} {got.tolist()} "
-                                         f"against plain {want.tolist()}")
-                errs[k] = float((got - want).abs().max())
-            worst, bad, upd = 0.0, [], {}
-            for n, p in plain["params"].named_parameters():
-                if not torch.allclose(full[n], p, **STEP_TOL):
-                    bad.append(n)
-                worst = max(worst, float((full[n] - p).abs().max()))
-                want = p.detach().double() - init[n]
-                got = full[n].double() - init[n]
-                upd[n] = float((got - want).norm()
-                               / want.norm().clamp(min=1e-30))
-            if bad:
-                raise AssertionError(f"mesh_tp: parameters beyond STEP_TOL "
-                                     f"of the plain steps: {bad}")
-            top = sorted(upd.items(), key=lambda kv: -kv[1])[:4]
-            if top[0][1] > UPDATE_TOL:
-                raise AssertionError(f"mesh_tp: updates beyond UPDATE_TOL "
-                                     f"{UPDATE_TOL} of the plain steps' in "
-                                     f"relative norm: {top}")
-            r.update(plain_losses=[m["loss"] for m in pm],
-                     plain_grad_norms=[m["grad_norm"] for m in pm],
-                     metric_errs=errs, param_max_abs_err=worst,
-                     update_rel_errs=top)
-        dist.barrier()
+        for arch in MESH_TP_CELLS:
+            t0 = time.perf_counter()
+            out["cells"][arch] = mesh_tp_cell(rank, arch, seed, dev)
+            out["cells"][arch]["cell_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
-    r["wall_s"] = time.perf_counter() - t_start
-    r["work_s"] = time.perf_counter() - t_go
-    return r
+    out["wall_s"] = time.perf_counter() - t_start
+    out["work_s"] = time.perf_counter() - t_go
+    return out
 
 
 MESH_TP_CHILD = r"""
@@ -3881,18 +4087,23 @@ def stop_children(procs) -> None:
 
 
 def mesh_tp_phase(child) -> dict:
-    """``mesh_tp:gemma3-1b``: tensor-parallel training on one card.  NCCL
-    takes one rank a device, so MESH_TP_WORLD processes share the card in
-    a gloo group on CUDA tensors (:func:`start_mesh_tp`, started earlier,
-    released here if not before; :func:`mesh_tp_rank`): ``mesh_train``'s cell
-    (gemma3-1b at full width, 6 layers, B 4, S 1024, f32 with TF32 off) on
-    a (1, 2) data/model mesh, so each rank holds 2 of the 4 q heads and
-    half of each kv projection's columns (gathered to the 1 kv head), half
-    of the MLP and of the tied vocabulary.  MESH_TRAIN_STEPS steps; rank
-    0's losses, gradient norms and updated parameters (gathered) within
-    STEP_TOL of as many plain steps on the card, each parameter's update
-    within UPDATE_TOL in relative norm; on both ranks the flash forward
-    and its f32 ``simt`` backward launched, on 2 q heads only.  Prints
+    """``mesh_tp``: tensor-parallel training on one card, a record for each
+    cell of MESH_TP_CELLS (``mesh_tp:<arch>``).  NCCL takes one rank a
+    device, so MESH_TP_WORLD processes share the card in a gloo group on
+    CUDA tensors (:func:`start_mesh_tp`, started earlier, released here if
+    not before; :func:`mesh_tp_rank`) on a (1, 2) data/model mesh:
+    ``mesh_train``'s gemma3-1b cell (each rank 2 of the 4 q heads, half of
+    each kv projection's columns gathered to the 1 kv head, half of the
+    MLP and of the tied vocabulary), hymba-1.5b (half of d_inner a rank:
+    xm's and z's columns of ``mamba.w_in`` from both ranks' blocks, the
+    scan on the rank's channels, 13 of the 25 q heads) and xlstm-1.3b
+    (half of each mLSTM's and of the sLSTM's inner dimension, 2 of the 4
+    heads).  MESH_TRAIN_STEPS steps each; rank 0's losses, gradient norms
+    and updated parameters within STEP_TOL of as many plain steps on the
+    card, each parameter's update within the cell's ``update_tol`` in
+    relative norm (:func:`mesh_tp_cell`); on both ranks the flash forward
+    and its f32 ``simt`` backward launched on the cell's q heads only
+    (xLSTM none).  Prints
     each rank's local weight shapes, ms a step and peak bytes."""
     procs, t_start = child
     release_mesh_tp()
@@ -3907,31 +4118,50 @@ def mesh_tp_phase(child) -> dict:
     if bad:
         raise AssertionError(f"mesh_tp: ranks failed: {bad}")
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
-    for r in ranks:
-        require_launched(f"mesh_tp rank {r['rank']}", r["launches"])
-        if r["q_heads"] != {"fwd": [2], "bwd": [2]}:
-            raise AssertionError(f"mesh_tp rank {r['rank']}: flash ran on "
-                                 f"q heads {r['q_heads']}, not 2")
-        log(f"mesh_tp rank {r['rank']}: local shapes {r['local_shapes']}; "
-            f"{r['ms_per_step']:.3f} ms a step ({r['step_s']}), peak "
-            f"{r['peak_bytes']} bytes; launches {r['launches']}; flash "
-            f"q heads {r['q_heads']}; {r['wall_s']:.3f} s in the process")
-    r0 = ranks[0]
-    launches = {k: sum(r["launches"][k] for r in ranks)
-                for k in r0["launches"]}
-    log(f"mesh_tp:gemma3-1b (6 layers, B 4, S 1024, f32, (1, 2) on one card "
-        f"over gloo): losses {r0['losses']} against plain "
-        f"{r0['plain_losses']}, grad norms {r0['grad_norms']} against "
-        f"{r0['plain_grad_norms']} (largest differences "
-        f"{r0['metric_errs']}), parameters within "
-        f"{r0['param_max_abs_err']} (STEP_TOL {STEP_TOL}), the largest "
-        f"relative errors of the updates {r0['update_rel_errs']} "
-        f"(UPDATE_TOL {UPDATE_TOL}); {wait:.3f} s waited for the ranks; "
-        f"on {nvidia_smi()}")
-    return dict(ranks=ranks, launches=launches, wait_s=wait,
-                wall_s=time.perf_counter() - t_start,
-                ms_per_step=[r["ms_per_step"] for r in ranks],
-                peak_bytes=[r["peak_bytes"] for r in ranks])
+    res = {}
+    for arch, cell in MESH_TP_CELLS.items():
+        recs = [dict(r["cells"][arch], rank=r["rank"]) for r in ranks]
+        for r in recs:
+            want = cell["q_heads"]
+            if want is None:
+                if any(r["launches"].values()):
+                    raise AssertionError(f"mesh_tp:{arch} rank "
+                                         f"{r['rank']}: attention launched "
+                                         f"{r['launches']}")
+            else:
+                require_launched(f"mesh_tp:{arch} rank {r['rank']}",
+                                 r["launches"])
+                if r["q_heads"] != {"fwd": [want], "bwd": [want]}:
+                    raise AssertionError(
+                        f"mesh_tp:{arch} rank {r['rank']}: flash ran on q "
+                        f"heads {r['q_heads']}, not {want}")
+            log(f"mesh_tp:{arch} rank {r['rank']}: local shapes "
+                f"{r['local_shapes']}; {r['ms_per_step']:.3f} ms a step "
+                f"({r['step_s']}), peak {r['peak_bytes']} bytes; launches "
+                f"{r['launches']}; flash q heads {r['q_heads']}; "
+                f"{r['cell_s']:.3f} s")
+        r0 = recs[0]
+        log(f"mesh_tp:{arch} ({cell['layers']} layers, B {cell['B']}, S "
+            f"{cell['S']}, f32, (1, 2) on one card over gloo): losses "
+            f"{r0['losses']} against plain {r0['plain_losses']}, grad norms "
+            f"{r0['grad_norms']} against {r0['plain_grad_norms']} (largest "
+            f"differences {r0['metric_errs']}), parameters within "
+            f"{r0['param_max_abs_err']} (STEP_TOL {STEP_TOL}), the largest "
+            f"relative errors of the updates {r0['update_rel_errs']} "
+            f"(within {cell['update_tol']}; {r0['compared']}, AdamW eps "
+            f"{r0['adamw_eps']})")
+        res[f"mesh_tp:{arch}"] = dict(
+            ranks=recs, launches={k: sum(r["launches"][k] for r in recs)
+                                  for k in r0["launches"]},
+            ms_per_step=[r["ms_per_step"] for r in recs],
+            peak_bytes=[r["peak_bytes"] for r in recs],
+            cell_s=[r["cell_s"] for r in recs])
+    log(f"mesh_tp: {wait:.3f} s waited for the ranks; "
+        f"{[r['work_s'] for r in ranks]} s of work in each; on "
+        f"{nvidia_smi()}")
+    for r in res.values():
+        r.update(wait_s=wait, wall_s=time.perf_counter() - t_start)
+    return res
 
 
 REPLACES = {
@@ -4062,8 +4292,9 @@ def main() -> int:
         dry = dryrun_phase(mesh["mesh_train:gemma3-1b"], child)
         dry["phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        training["mesh_tp:gemma3-1b"] = mesh_tp_phase(tp_child)
-        training["mesh_tp:gemma3-1b"]["phase_s"] = time.perf_counter() - t0
+        training.update(mesh_tp_phase(tp_child))
+        for k in MESH_TP_CELLS:
+            training[f"mesh_tp:{k}"]["phase_s"] = time.perf_counter() - t0
     finally:
         stop_children([child[0]] + tp_child[0])
     fds = mesh["flash_decode_shards"]
@@ -4092,9 +4323,12 @@ def main() -> int:
     path_launches["paged_attention"]["flash_decode_shards"] = \
         fds["decode_launches"]["paged_attention"]
     # the training paths: forward (and remat's recompute) and backward
+    # (xLSTM's reaches neither kernel)
     for name in ("flash_attention", "flash_attention_bwd"):
         path_launches.setdefault(name, {}).update(
-            {k: r["launches"][name] for k, r in training.items()})
+            {k: r["launches"][name] for k, r in training.items()
+             if not (k.startswith("mesh_tp:") and MESH_TP_CELLS[
+                 k.split(":")[1]]["q_heads"] is None)})
     for name, per_path in path_launches.items():
         require_launched(name, per_path)
         launches[name] = sum(per_path.values())

@@ -19,6 +19,13 @@ join the ranks with these pieces:
   the partial sums of a row-parallel product or of the rank's experts;
 * :func:`gather_from_model`: all-gather along a dimension, whose backward
   slices the rank's part;
+* :func:`reduce_scatter_from_model`: the rank's block of the sum of the
+  ranks' partials (an all-reduce), whose backward all-gathers, for a
+  row-parallel product consumed by columns (Mamba's ``w_dt``);
+* :func:`parts_of_model`: a rank's slice of each part of a dimension made
+  of parts side by side (Mamba's and mLSTM's [xm | z], the sLSTM's four
+  gates), from weight columns the reference splits into contiguous
+  blocks that do not follow the parts;
 * :func:`vocab_embed`: a lookup in the rank's rows of a vocab-split table,
   the other rows 0, then :func:`reduce_from_model`;
 * :func:`vocab_nll`: the cross-entropy of vocab-split logits in f32, from
@@ -49,8 +56,10 @@ from repro_torch.distributed import sharding as shd
 
 __all__ = ["ModelGroup", "activate", "copy_to_model", "current",
            "gather_from_model", "local_copy", "local_of", "local_shape",
-           "model_dims", "model_group", "reduce_from_model", "split",
-           "vocab_embed", "vocab_nll", "without_model"]
+           "local_size", "model_dims", "model_group", "own_spans",
+           "parts_of_model", "reduce_from_model",
+           "reduce_scatter_from_model", "split", "vocab_embed", "vocab_nll",
+           "without_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +119,15 @@ def split(t: torch.Tensor, dim: int, whole: int) -> bool:
     return True
 
 
+def local_size(whole: int) -> int:
+    """The entries a local copy holds of a dimension of ``whole`` that the
+    rule table puts on ``model`` (a decode state's ``w_inner`` channels):
+    this rank's ``1 / size`` where the ranks divide it, as
+    ``sharding._spec_for_shape`` splits, else all of them."""
+    tp = _CTX.tp
+    return whole if tp is None or whole % tp.size else whole // tp.size
+
+
 # ------------------------------------------------------------ collectives --
 def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The ``n`` ranks' ``x`` of ``group`` joined along ``dim``."""
@@ -144,6 +162,20 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _ReduceScatterFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        n = x.shape[dim] // tp.size
+        ctx.dim, ctx.tp = dim, tp
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=tp.group)
+        return y.narrow(dim, tp.rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.tp.group, ctx.tp.size), None, None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, tp):
@@ -153,6 +185,123 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def _pieces(spans, width: int, block: int):
+    """Where the columns ``spans`` of a dimension cut into ``len(spans)``
+    equal parts of ``width`` lie in the ranks' blocks of ``block``
+    columns: ``(block index, start in the block, length)`` in order,
+    part ``p`` taking its columns ``[lo, hi)``."""
+    out = []
+    for p, (lo, hi) in enumerate(spans):
+        a, b = p * width + lo, p * width + hi
+        while a < b:
+            k = a // block
+            e = min(b, (k + 1) * block)
+            out.append((k, a - k * block, e - a))
+            a = e
+    return out
+
+
+class _PartsOfModel(torch.autograd.Function):
+    """Forward: this rank's ``spans`` of each part, from the ranks' blocks
+    gathered as a list.  Backward: the ranks' gradients gathered the same
+    way (padded to one width), each rank's pieces that fall in this rank's
+    block added into its gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, tp, spans):
+        n, block = tp.size, t.shape[dim]
+        width = n * block // len(spans[0])
+        ctx.dim, ctx.tp, ctx.spans, ctx.width = dim, tp, spans, width
+        x = t.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=tp.group)
+        parts[tp.rank] = t
+        return torch.cat([parts[k].narrow(dim, s, m) for k, s, m in
+                          _pieces(spans[tp.rank], width, block)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, tp, width = ctx.dim, ctx.tp, ctx.width
+        block = width * len(ctx.spans[0]) // tp.size
+        most = max(sum(hi - lo for lo, hi in s) for s in ctx.spans)
+        g = g.contiguous()
+        if g.shape[dim] < most:
+            pad = list(g.shape)
+            pad[dim] = most - g.shape[dim]
+            g = torch.cat([g, g.new_zeros(pad)], dim)
+        gs = [torch.empty_like(g) for _ in range(tp.size)]
+        dist.all_gather(gs, g, group=tp.group)
+        shape = list(g.shape)
+        shape[dim] = block
+        out = g.new_zeros(shape)
+        for j, gj in enumerate(gs):
+            at = 0
+            for k, s, m in _pieces(ctx.spans[j], width, block):
+                if k == tp.rank:
+                    out.narrow(dim, s, m).add_(gj.narrow(dim, at, m))
+                at += m
+        return out, None, None, None
+
+
+def own_spans(parts: int, whole: int, rank: int) -> tuple:
+    """Rank ``rank``'s ``1 / size`` of each of ``parts`` equal parts of a
+    dimension of ``whole`` entries, as ``(lo, hi)`` within each part
+    (every column of each part with no ``model`` group)."""
+    tp = _CTX.tp
+    n = 1 if tp is None else tp.size
+    w = whole // parts
+    if w % n:
+        raise ValueError(f"parts of {w} do not split over {n} ranks")
+    c = w // n
+    return ((rank * c, (rank + 1) * c),) * parts
+
+
+def parts_of_model(t: torch.Tensor, whole: int, parts: int, dim: int = -1,
+                   spans_of: Optional[Callable] = None) -> torch.Tensor:
+    """The columns ``[lo, hi)`` of each of the ``parts`` equal parts of
+    ``t``'s dimension ``dim`` of ``whole`` entries ([xm | z] of a Mamba or
+    mLSTM up-projection, the sLSTM's [i | f | z | o] gates), joined along
+    ``dim`` in part order: ``spans_of(rank)`` gives each part's ``(lo,
+    hi)``, by default the rank's own ``1 / size`` of each
+    (:func:`own_spans`).
+
+    With no ``model`` group that is every column, ``t`` itself.  ``t``
+    whole on every rank of one: its slices, passed through
+    :func:`copy_to_model` first (the ranks' gradients are summed).  ``t``
+    this rank's block of a dimension split over ``model`` into contiguous
+    blocks, as a weight's columns or a product's output columns: the
+    reference's layout, which puts whole parts on some ranks (over 2
+    ranks rank 0 holds all of xm), so the blocks are gathered as a list
+    (no tensor of the whole dimension is made) and the rank's spans cut
+    from them.  The backward sends each rank's gradient pieces to the
+    blocks' owners: the ranks' gradients are gathered, and each owner adds
+    the pieces that fall in its block (ranks whose spans overlap, as ranks
+    that share a head do, have their pieces summed), so every rank's spans
+    come from ``spans_of``.  Spans that are exactly the rank's own block
+    return ``t``."""
+    dim %= t.ndim
+    tp = _CTX.tp
+    if spans_of is None:
+        def spans_of(r):
+            return own_spans(parts, whole, r)
+    spans = tuple(spans_of(0 if tp is None else tp.rank))
+    if len(spans) != parts:
+        raise ValueError(f"{len(spans)} spans for {parts} parts")
+    w = whole // parts
+    if not split(t, dim, whole):
+        if spans == ((0, w),) * parts:
+            return t
+        if tp is not None:
+            t = copy_to_model(t)
+        return torch.cat([t.narrow(dim, p * w + lo, hi - lo)
+                          for p, (lo, hi) in enumerate(spans)], dim)
+    block = t.shape[dim]
+    if _pieces(spans, w, block) == [(tp.rank, 0, block)]:
+        return t
+    return _PartsOfModel.apply(
+        t, dim, tp, tuple(tuple(spans_of(r)) for r in range(tp.size)))
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -176,6 +325,19 @@ def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if tp is None:
         return x
     return _GatherFromModel.apply(x, dim % x.ndim, tp)
+
+
+def reduce_scatter_from_model(x: torch.Tensor, dim: int = -1
+                              ) -> torch.Tensor:
+    """This rank's ``1 / size`` block along ``dim`` of the sum of the
+    ranks' partial ``x`` (an all-reduce, then the rank's block: a
+    row-parallel product whose output the ranks consume by columns); the
+    backward gathers the ranks' gradients of their blocks, the whole
+    gradient of each one's partial."""
+    tp = _CTX.tp
+    if tp is None:
+        return x
+    return _ReduceScatterFromModel.apply(x, dim % x.ndim, tp)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, vocab: int

@@ -20,21 +20,19 @@ Each cell runs what the port runs on that rank:
     mesh=...)`` step on ``input_specs``' batch (pod compression off unless
     ``--compressed``, as the reference);
   * ``prefill``: the parameters sharded by ``param_shardings``, gathered
-    into the mesh step's work copy (``train_loop.work_copy``: for the
-    transformer family a tensor-parallel local copy, each ``model``-split
-    weight this rank's ``model`` shard; hymba and xLSTM a whole plain
-    copy), then ``forward(..., last_only=True)`` on this rank's slice of
-    the batch, under ``tensor_parallel.activate`` for the transformer
-    family;
-  * ``decode``: for the transformer family the parameters held as that
-    local copy (whole over ``data``, this rank's ``model`` shards: a
-    serving replica keeps them so), for hymba and xLSTM whole on every
-    rank; this rank's slice of the batch (a data-parallel replica serves
+    into the mesh step's work copy (``train_loop.work_copy``, a
+    tensor-parallel local copy: each ``model``-split weight this rank's
+    ``model`` shard), then ``forward(..., last_only=True)`` on this rank's
+    slice of the batch under ``tensor_parallel.activate``;
+  * ``decode``: the parameters held as that local copy (whole over
+    ``data``, this rank's ``model`` shards: a serving replica keeps them
+    so); this rank's slice of the batch (a data-parallel replica serves
     its own sequences) and its cache as the port lays it out under the
     mesh (pools split over ``model`` under ``flash_decode_shards``, else
-    whole), then one ``decode_step`` (tensor-parallel for the transformer
-    family: q, k, v gathered to whole heads, ``wo``, the MLP and the head
-    split).
+    whole; hymba's conv and SSM states and xLSTM's cell states on the
+    rank's channels and heads), then one tensor-parallel ``decode_step``
+    (q, k, v gathered to whole heads, ``wo``, the MLP, the Mamba and
+    xLSTM inner dimensions and the head split).
 
 One dispatch walk of the step (:class:`repro_torch.launch.op_analysis.OpWalk`)
 under ``FlopCounterMode`` gives the reference's keys:
@@ -100,8 +98,7 @@ from repro_torch.models.model import build_model, family_module
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import (batch_shardings, load_work,
                                              make_train_step, shard_state,
-                                             state_shardings,
-                                             tensor_parallel, work_copy)
+                                             state_shardings, work_copy)
 
 WORLD = 512          # ranks of the fake group: both production meshes fit
 META = torch.device("meta")
@@ -227,10 +224,6 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
             held = _tensors(state) + list(local.values())
             return (step, (state, batch), held, lambda out: _tensors(out[0]))
 
-        def par():
-            return tp.activate(mesh) if tensor_parallel(cfg) \
-                else contextlib.nullcontext()
-
         model = _empty_model(cfg, cell.seq_len, device)
         p_sh = shd.param_shardings(param_axes(model), mesh,
                                    shapes=dict(model.named_parameters()))
@@ -244,7 +237,7 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
             def prefill_step(model, batch):
                 work = work_copy(cfg, model, mesh).requires_grad_(False)
                 load_work(cfg, work, model, mesh)
-                with par():
+                with tp.activate(mesh):
                     logits, _ = mod_.forward(cfg, work, batch,
                                              last_only=True)
                 return logits
@@ -252,21 +245,20 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
             held = _tensors(model) + list(local.values())
             return prefill_step, (model, local), held, lambda out: []
 
-        # decode: the local copy (or the whole parameters), this rank's
-        # sequences
-        if tensor_parallel(cfg):
-            sharded = shard_state({"params": model, "opt": {}},
-                                  {"params": p_sh})["params"]
-            model = work_copy(cfg, sharded, mesh).requires_grad_(False)
-            load_work(cfg, model, sharded, mesh)
-            del sharded
+        # decode: the local copy, this rank's sequences
+        sharded = shard_state({"params": model, "opt": {}},
+                              {"params": p_sh})["params"]
+        model = work_copy(cfg, sharded, mesh).requires_grad_(False)
+        load_work(cfg, model, sharded, mesh)
+        del sharded
         api = build_model(cfg, device)
         local = _batch_slice(_inputs(cfg, cell, device), mesh)
-        cache = api.init_decode_cache(local["tokens"].shape[0],
-                                      cell.seq_len)
+        with tp.activate(mesh):
+            cache = api.init_decode_cache(local["tokens"].shape[0],
+                                          cell.seq_len)
 
         def serve_step(model, cache, tokens):
-            with par():
+            with tp.activate(mesh):
                 return api.decode_step(model, cache, tokens)
 
         held = _tensors(model) + _tensors(cache) + [local["tokens"]]

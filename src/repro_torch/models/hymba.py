@@ -16,6 +16,13 @@ The SSM scan is plain torch, as the reference's is jnp: a log-depth
 (Hillis-Steele) scan within each chunk of 256 steps, the state carried
 from chunk to chunk.
 
+Under :func:`repro_torch.distributed.tensor_parallel.activate`, on a
+local copy (the ``w_inner`` dimensions split over ``model``), the Mamba
+path runs on this rank's channels of d_inner (:func:`mamba_apply`) and
+the attention, MLP, embedding and head take the layers' tensor-parallel
+paths (25 q heads over 5 kv heads straddle GQA groups over 2 or 16
+ranks: each rank attends on the q heads that cover its rows of ``wo``).
+
 The decode cache holds, per layer, ``(Tagged("paged" | "ring", entry),
 {"conv", "state"})``: the attention entry and the SSM's last
 ``CONV_K - 1`` conv inputs (compute dtype) and its ``(B, d_inner, N)``
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils import Tagged
@@ -109,15 +117,45 @@ def ssm_scan_chunked(a: torch.Tensor, b: torch.Tensor, state: torch.Tensor,
     return torch.cat(hs, 1)[:, :S], state
 
 
+def _mamba_split(cfg: ArchConfig, p: Mamba) -> bool:
+    """Whether ``p`` holds this rank's ``1 / size`` of d_inner (a
+    tensor-parallel local copy); the rule table splits every ``w_inner``
+    dimension of the path alike, or none."""
+    DI = 2 * cfg.d_model
+    par = tp.split(p.conv, 1, DI)
+    if par != tp.split(p.w_in, 1, 2 * DI):
+        raise NotImplementedError(
+            f"d_inner {DI} does not split over the model ranks as "
+            "2 d_inner does")
+    return par
+
+
 def mamba_apply(cfg: ArchConfig, p: Mamba, x: torch.Tensor, *,
                 conv_state=None, ssm_state=None, chunk: int = 256):
     """x: (B, S, D) -> ((B, S, D), (conv_state', ssm_state')).  With S == 1
     one recurrence step from ``ssm_state`` (zeros when None); else the
-    chunked scan."""
+    chunked scan.
+
+    Under tensor parallelism (``p`` a local copy's, d_inner split over
+    ``model``) on this rank's channels of d_inner: ``w_in``'s columns of
+    the rank's xm and z (:func:`tensor_parallel.parts_of_model`; the
+    reference's blocks put xm and z on different ranks), the conv, the
+    scan, ``dt_bias``, ``a_log`` and ``d_skip`` on those channels; ``w_bc``
+    row-parallel, its partial sums reduced into the whole (B, S, 2 N);
+    ``w_dt`` (rows split, columns whole) row-parallel with each rank
+    taking its columns of the reduced sum
+    (:func:`tensor_parallel.reduce_scatter_from_model`); ``w_out``
+    row-parallel.  The states are the rank's channels."""
     dtype = cfg.compute_dtype
     B, S, D = x.shape
     N = cfg.ssm_state
-    up = x.to(dtype) @ p.w_in.to(dtype)
+    DI = 2 * cfg.d_model
+    par = _mamba_split(cfg, p)
+    w_in = p.w_in
+    if par:
+        x = tp.copy_to_model(x)
+        w_in = tp.parts_of_model(w_in, 2 * DI, 2, dim=1)
+    up = x.to(dtype) @ w_in.to(dtype)
     di = up.shape[-1] // 2
     xm, z = up[..., :di], up[..., di:]
 
@@ -132,10 +170,14 @@ def mamba_apply(cfg: ArchConfig, p: Mamba, x: torch.Tensor, *,
     xc = F.silu(xc)
 
     # selective parameters
-    bc = (xc @ p.w_bc.to(dtype)).float()
+    bc = xc @ p.w_bc.to(dtype)
+    dt = xc @ p.w_dt.to(dtype)
+    if par:
+        bc = tp.copy_to_model(tp.reduce_from_model(bc))
+        dt = tp.reduce_scatter_from_model(dt)
+    bc = bc.float()
     Bp, Cp = bc[..., :N], bc[..., N:]                  # (B, S, N)
-    dt = F.softplus((xc @ p.w_dt.to(dtype)).float()
-                    + p.dt_bias.float())               # (B, S, d_inner)
+    dt = F.softplus(dt.float() + p.dt_bias.float())    # (B, S, d_inner)
     A = -torch.exp(p.a_log.float())                    # (d_inner, N)
     da = torch.exp(dt[..., None] * A)                  # (B, S, d_inner, N)
     db = (dt * xc.float())[..., None] * Bp[..., None, :]
@@ -151,7 +193,10 @@ def mamba_apply(cfg: ArchConfig, p: Mamba, x: torch.Tensor, *,
         y = torch.einsum("bsdn,bsn->bsd", hs, Cp)
     y = y + xc.float() * p.d_skip.float()
     y = y.to(dtype) * F.silu(z)
-    return y @ p.w_out.to(dtype), (new_conv_state, new_state)
+    out = y @ p.w_out.to(dtype)
+    if par:
+        out = tp.reduce_from_model(out)
+    return out, (new_conv_state, new_state)
 
 
 # ------------------------------------------------------------------ block --
@@ -271,9 +316,11 @@ def init_decode_cache(cfg: ArchConfig, B: int, max_seq: int, device) -> dict:
     """Per layer ``(Tagged(kind, entry), {"conv", "state"})``: a paged pool
     of ``max_seq + n_meta_tokens`` positions on the global layers, a ring
     of ``window`` positions on every other (whatever ``max_seq`` is).
-    The reference also returns the cache's sharding axes, which have no
-    counterpart here."""
-    di = 2 * cfg.d_model
+    Under tensor parallelism ``conv`` and ``state`` hold this rank's
+    channels of d_inner (the reference's cache axes split them over
+    ``model``).  The reference also returns the cache's sharding axes,
+    which have no counterpart here."""
+    di = tp.local_size(2 * cfg.d_model)
     g = _global_layers(cfg)
     w = cfg.window or 1024
     total = max_seq + cfg.n_meta_tokens

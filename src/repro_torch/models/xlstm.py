@@ -9,6 +9,16 @@ per-head hidden-state recurrence ``r``) has no parallel form: it runs as
 a loop over time.  Everything here is plain torch, as the reference is
 jnp; no kernel of the reference's is on this path.
 
+Under :func:`repro_torch.distributed.tensor_parallel.activate`, on a
+local copy (the ``w_inner`` dimensions split over ``model``), each block
+runs on this rank's channels of the inner dimension: the up-projections'
+columns of the rank's parts (:func:`tensor_parallel.parts_of_model`),
+``w_if`` and ``w_down`` row-parallel, the cell on the rank's heads, or,
+where the ranks do not divide the heads (xlstm-1.3b's 4 over 16), on the
+whole heads that cover its channels, of which it keeps its own channels.
+The sLSTM's loop runs on those heads with no collective in it; the decode
+states hold them.
+
 The blocks are heterogeneous, so they sit in an ``nn.ModuleList`` of the
 two classes, as the reference keeps a tuple of per-layer trees.  The
 decode cache holds ``Tagged("mlstm", (C, n, m))`` or ``Tagged("slstm",
@@ -24,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.utils import Tagged
 
@@ -139,61 +150,147 @@ class MLSTMBlock(nn.Module):
         self.hn.fill_(1.0)
 
 
+def _dims(cfg: ArchConfig):
+    inner = int(cfg.proj_factor * cfg.d_model)
+    return cfg.n_heads, inner // cfg.n_heads, inner
+
+
+def _tp_inner(cfg: ArchConfig, n: int, r: int):
+    """Rank ``r`` of ``n``'s channels ``[c0, c0 + c)`` of the inner
+    dimension and the heads ``[h0, h1)`` that cover them: its own heads
+    where the ranks divide the heads, else the whole heads its channels
+    fall in (over 4 ranks the smoke model's 2 heads are half a head a
+    rank, xlstm-1.3b's 4 over 16 a quarter).  One rank of one has every
+    channel and head."""
+    H, hd, inner = _dims(cfg)
+    c = inner // n
+    c0 = r * c
+    return c0, c, c0 // hd, -(-(c0 + c) // hd)
+
+
+def _ranks(cfg: ArchConfig, w_down: L.Dense):
+    """``(n, r)``: the ranks that split the inner dimension and this one,
+    by ``w_down``'s rows (split over ``model`` in a tensor-parallel local
+    copy); ``(1, 0)`` when it is whole."""
+    t = tp.current() if tp.split(w_down.w, 0, _dims(cfg)[2]) else None
+    return (t.size, t.rank) if t else (1, 0)
+
+
+def _head_spans(cfg: ArchConfig, n: int, n_parts: int,
+                own_last: bool = False):
+    """``spans_of`` for :func:`tensor_parallel.parts_of_model`: each of
+    ``n`` ranks' covering heads' channels in each of ``n_parts`` parts of
+    the inner dimension (with ``own_last``, its own channels in the last
+    part)."""
+    hd = _dims(cfg)[1]
+
+    def spans(r):
+        c0, c, h0, h1 = _tp_inner(cfg, n, r)
+        heads = (h0 * hd, h1 * hd)
+        if own_last:
+            return (heads,) * (n_parts - 1) + ((c0, c0 + c),)
+        return (heads,) * n_parts
+    return spans
+
+
 def _mlstm_qkv_gates(cfg: ArchConfig, p: MLSTMBlock, x: torch.Tensor):
-    """x: (B, S, D) -> q, k, v (B, H, S, hd), ilog, glog (B, H, S), z
-    (B, S, inner), inner, hd."""
+    """x: (B, S, D) -> q, k, v (B, nh, S, hd), ilog, glog (B, nh, S), z
+    (B, S, c) and this rank's ``(c0, c, h0, h1)`` (:func:`_tp_inner`):
+    the heads ``[h0, h1)`` (nh of them; all H without tensor parallelism)
+    and z's channels ``[c0, c0 + c)``.  Under tensor parallelism xm on the
+    covering heads' channels and z on the rank's own come from one
+    product (:func:`tensor_parallel.parts_of_model` of ``w_up``'s
+    columns); ``wq``, ``wk`` and ``wv`` act on those heads (their blocks
+    gathered where the heads are not the rank's own); ``w_if`` is
+    row-parallel on the rank's channels of xm, its partial sums reduced
+    into the whole gates."""
     dtype = cfg.compute_dtype
     B, S, _ = x.shape
-    H = cfg.n_heads
-    up = L.dense(p.w_up, L.norm_apply(cfg, p.ln, x), dtype)
-    inner = up.shape[-1] // 2
-    xm, z = up[..., :inner], up[..., inner:]
-    hd = inner // H
+    H, hd, inner = _dims(cfg)
+    n, r = _ranks(cfg, p.w_down)
+    c0, c, h0, h1 = span = _tp_inner(cfg, n, r)
+    nh = h1 - h0
+    xn = L.norm_apply(cfg, p.ln, x)
+    if n == 1:
+        up = L.dense(p.w_up, xn, dtype)
+    else:
+        w = tp.parts_of_model(p.w_up.w, 2 * inner, 2, dim=1,
+                              spans_of=_head_spans(cfg, n, 2, True))
+        up = tp.copy_to_model(xn).to(dtype) @ w.to(dtype)
+    xm, z = up[..., :nh * hd], up[..., nh * hd:]
 
     def heads(w):
-        return _block_linear(w, xm, dtype).reshape(B, S, H, hd).transpose(1, 2)
+        w = tp.parts_of_model(w, inner // QKV_BLOCK, 1, dim=0, spans_of=(
+            lambda q: tuple((a // QKV_BLOCK, b // QKV_BLOCK) for a, b in
+                            _head_spans(cfg, n, 1)(q))))
+        return _block_linear(w, xm, dtype).reshape(
+            B, S, nh, hd).transpose(1, 2)
 
     q, k, v = heads(p.wq), heads(p.wk), heads(p.wv)
-    gates = L.dense(p.w_if, xm, dtype).float()
-    ilog = gates[..., :H].transpose(1, 2)
-    glog = F.logsigmoid(gates[..., H:]).transpose(1, 2)
-    return q / math.sqrt(hd), k, v, ilog, glog, z, inner, hd
+    gates = L.dense(p.w_if, xm[..., c0 - h0 * hd:c0 - h0 * hd + c], dtype)
+    if n > 1:
+        gates = tp.copy_to_model(tp.reduce_from_model(gates))
+    gates = gates.float()
+    ilog = gates[..., h0:h1].transpose(1, 2)
+    glog = F.logsigmoid(gates[..., H + h0:H + h1]).transpose(1, 2)
+    return q / math.sqrt(hd), k, v, ilog, glog, z, span
 
 
-def _mlstm_out(cfg: ArchConfig, p: MLSTMBlock, x, h, z, inner, hd):
-    """The per-head norm of h (B, S, H, hd), the silu(z) gate, w_down and
-    the residual."""
+def _mlstm_out(cfg: ArchConfig, p: MLSTMBlock, x, h, z, span, n):
+    """The per-head norm of h (B, S, nh, hd), the rank's channels of it
+    gated by silu(z), ``w_down`` (row-parallel over ``n`` ranks) and the
+    residual."""
     B, S = h.shape[:2]
     dtype = cfg.compute_dtype
-    H = cfg.n_heads
-    hn = L.rms_norm_simple(h, p.hn.reshape(H, hd)[None, None])
-    h = hn.reshape(B, S, inner).to(dtype) * F.silu(z)
-    return x + L.dense(p.w_down, h, dtype)
+    H, hd, inner = _dims(cfg)
+    c0, c, h0, h1 = span
+    hn = tp.parts_of_model(p.hn, inner, 1, dim=0,
+                           spans_of=_head_spans(cfg, n, 1))
+    h = L.rms_norm_simple(h, hn.reshape(h1 - h0, hd)[None, None])
+    h = h.reshape(B, S, (h1 - h0) * hd)[..., c0 - h0 * hd:c0 - h0 * hd + c]
+    return x + L.row_parallel(p.w_down, h.to(dtype) * F.silu(z), dtype,
+                              inner)
 
 
 def mlstm_block(cfg: ArchConfig, p: MLSTMBlock, x: torch.Tensor, *,
                 chunk: int = 256) -> torch.Tensor:
     S = x.shape[1]
-    q, k, v, ilog, glog, z, inner, hd = _mlstm_qkv_gates(cfg, p, x)
+    q, k, v, ilog, glog, z, span = _mlstm_qkv_gates(cfg, p, x)
     h, _ = mlstm_chunkwise(q, k, v, ilog, glog, chunk=min(chunk, S))
-    return _mlstm_out(cfg, p, x, h.transpose(1, 2), z, inner, hd)
+    return _mlstm_out(cfg, p, x, h.transpose(1, 2), z, span,
+                      _ranks(cfg, p.w_down)[0])
 
 
 def mlstm_block_step(cfg: ArchConfig, p: MLSTMBlock, x: torch.Tensor, state):
-    """Decode step.  x: (B, 1, D); state (C, n, m)."""
-    q, k, v, ilog, glog, z, inner, hd = _mlstm_qkv_gates(cfg, p, x)
+    """Decode step.  x: (B, 1, D); state (C, n, m) of the rank's heads."""
+    q, k, v, ilog, glog, z, span = _mlstm_qkv_gates(cfg, p, x)
     state2, h = mlstm_step(state, q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                           ilog[:, :, 0], glog[:, :, 0])   # (B, H, hd)
-    return _mlstm_out(cfg, p, x, h[:, None], z, inner, hd), state2
+                           ilog[:, :, 0], glog[:, :, 0])   # (B, nh, hd)
+    return _mlstm_out(cfg, p, x, h[:, None], z, span,
+                      _ranks(cfg, p.w_down)[0]), state2
+
+
+def _state_heads(cfg: ArchConfig) -> int:
+    """The heads a decode state holds: all H, or under tensor parallelism
+    the rank's covering heads (:func:`_tp_inner`: its share of the
+    ``state_head`` axis where the ranks divide H; where they do not, the
+    reference keeps the state whole and each rank here keeps the whole
+    heads it computes)."""
+    t = tp.current()
+    H, hd, inner = _dims(cfg)
+    if t is None or inner % t.size:
+        return H
+    _, _, h0, h1 = _tp_inner(cfg, t.size, t.rank)
+    return h1 - h0
 
 
 def mlstm_state_spec(cfg: ArchConfig, B: int, device):
-    inner = int(cfg.proj_factor * cfg.d_model)
-    hd = inner // cfg.n_heads
+    H, hd, _ = _dims(cfg)
+    nh = _state_heads(cfg)
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.zeros((B, cfg.n_heads, hd, hd), **f32),
-            torch.zeros((B, cfg.n_heads, hd), **f32),
-            torch.full((B, cfg.n_heads), NEG_INF, **f32))
+    return (torch.zeros((B, nh, hd, hd), **f32),
+            torch.zeros((B, nh, hd), **f32),
+            torch.full((B, nh), NEG_INF, **f32))
 
 
 # ----------------------------------------------------------- sLSTM block ---
@@ -205,9 +302,7 @@ class SLSTMBlock(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         d = cfg.d_model
-        inner = int(cfg.proj_factor * d)
-        H = cfg.n_heads
-        hd = inner // H
+        H, hd, inner = _dims(cfg)
         self.ln = L.Norm(cfg, d, **kw)
         self.w_in = L.Dense(d, 4 * inner, **kw)
         self.r = L._param((4, H, hd, hd), torch.float32, device)
@@ -218,13 +313,15 @@ class SLSTMBlock(nn.Module):
         self.r.normal_(0.0, 1.0 / math.sqrt(self.r.shape[-1]), generator=gen)
 
 
-def _slstm_gate_step(p: SLSTMBlock, xs_t, h, c, n, m, H, hd):
-    """One sLSTM time step in float32.  xs_t: (B, 4 inner) preacts."""
+def _slstm_gate_step(r, xs_t, h, c, n, m):
+    """One sLSTM time step in float32 on nh heads.  r: (4, nh, hd, hd);
+    xs_t: (B, 4 nh hd) preacts; h, c, n, m: (B, nh hd)."""
     B = xs_t.shape[0]
-    inner = H * hd
-    # (H, B, hd) @ (4, H, hd, hd), batched over (gate, head): r is read in
-    # place (an einsum over "bhd,ghde" copies all of r to batch by head)
-    rec = (h.reshape(B, H, hd).transpose(0, 1) @ p.r.float()).transpose(
+    nh, hd = r.shape[1], r.shape[2]
+    inner = nh * hd
+    # (nh, B, hd) @ (4, nh, hd, hd), batched over (gate, head): r is read
+    # in place (an einsum over "bhd,ghde" copies all of r to batch by head)
+    rec = (h.reshape(B, nh, hd).transpose(0, 1) @ r).transpose(
         1, 2).reshape(4, B, inner)
     pre = xs_t.reshape(B, 4, inner).transpose(0, 1) + rec
     i_t, f_t, z_t, o_t = pre[0], pre[1], pre[2], pre[3]
@@ -238,42 +335,67 @@ def _slstm_gate_step(p: SLSTMBlock, xs_t, h, c, n, m, H, hd):
     return h2, c2, n2, m_new
 
 
-def _slstm_dims(cfg: ArchConfig):
-    inner = int(cfg.proj_factor * cfg.d_model)
-    return cfg.n_heads, inner // cfg.n_heads, inner
+def _slstm_in(cfg: ArchConfig, p: SLSTMBlock, x: torch.Tensor):
+    """The preacts (B, S, 4 nh hd) in float32 on this rank's heads, ``r``
+    on them (4, nh, hd, hd) and the rank's ``(c0, c, h0, h1)``: under
+    tensor parallelism the covering heads' columns of each gate of
+    ``w_in`` (:func:`tensor_parallel.parts_of_model`) and ``r``'s heads
+    (its own shard where the ranks divide the heads, else sliced from the
+    whole ``r``)."""
+    dtype = cfg.compute_dtype
+    H, hd, inner = _dims(cfg)
+    n, rank = _ranks(cfg, p.w_down)
+    span = _tp_inner(cfg, n, rank)
+    xn = L.norm_apply(cfg, p.ln, x)
+    if n == 1:
+        return L.dense(p.w_in, xn, dtype).float(), p.r.float(), span
+    w = tp.parts_of_model(p.w_in.w, 4 * inner, 4, dim=1,
+                          spans_of=_head_spans(cfg, n, 4))
+    r = tp.parts_of_model(p.r, H, 1, dim=1, spans_of=lambda q: tuple(
+        (a // hd, b // hd) for a, b in _head_spans(cfg, n, 1)(q)))
+    xs = tp.copy_to_model(xn).to(dtype) @ w.to(dtype)
+    return xs.float(), r.float(), span
+
+
+def _slstm_out(cfg: ArchConfig, p: SLSTMBlock, x, h, span):
+    """The rank's channels of h (B, S, nh hd) through ``w_down``
+    (row-parallel under tensor parallelism), plus the residual."""
+    dtype = cfg.compute_dtype
+    c0, c, h0, _ = span
+    hd = _dims(cfg)[1]
+    h = h[..., c0 - h0 * hd:c0 - h0 * hd + c].to(dtype)
+    return x + L.row_parallel(p.w_down, h, dtype, _dims(cfg)[2])
 
 
 def slstm_block(cfg: ArchConfig, p: SLSTMBlock, x: torch.Tensor
                 ) -> torch.Tensor:
-    """The sLSTM over a sequence, one step at a time."""
+    """The sLSTM over a sequence, one step at a time; under tensor
+    parallelism on the rank's heads, with no collective in the loop."""
     B, S, _ = x.shape
-    dtype = cfg.compute_dtype
-    H, hd, inner = _slstm_dims(cfg)
-    xs = L.dense(p.w_in, L.norm_apply(cfg, p.ln, x), dtype).float()
+    xs, r, span = _slstm_in(cfg, p, x)
     carry = slstm_state_spec(cfg, B, x.device)
     hs = []
     for t in range(S):
-        carry = _slstm_gate_step(p, xs[:, t], *carry, H, hd)
+        carry = _slstm_gate_step(r, xs[:, t], *carry)
         hs.append(carry[0])
-    h = torch.stack(hs, 1)                             # (B, S, inner)
-    return x + L.dense(p.w_down, h.to(dtype), dtype)
+    return _slstm_out(cfg, p, x, torch.stack(hs, 1), span)
 
 
 def slstm_block_step(cfg: ArchConfig, p: SLSTMBlock, x: torch.Tensor, state):
-    """Decode step.  x: (B, 1, D); state (h, c, n, m)."""
-    dtype = cfg.compute_dtype
-    H, hd, _ = _slstm_dims(cfg)
-    xs = L.dense(p.w_in, L.norm_apply(cfg, p.ln, x), dtype).float()[:, 0]
-    state2 = _slstm_gate_step(p, xs, *state, H, hd)
-    out = x + L.dense(p.w_down, state2[0][:, None].to(dtype), dtype)
-    return out, state2
+    """Decode step.  x: (B, 1, D); state (h, c, n, m) of the rank's
+    heads."""
+    xs, r, span = _slstm_in(cfg, p, x)
+    state2 = _slstm_gate_step(r, xs[:, 0], *state)
+    return _slstm_out(cfg, p, x, state2[0][:, None], span), state2
 
 
 def slstm_state_spec(cfg: ArchConfig, B: int, device):
-    inner = int(cfg.proj_factor * cfg.d_model)
+    """(h, c, n, m), each (B, nh hd): every head, or under tensor
+    parallelism the rank's (:func:`_state_heads`)."""
+    _, hd, _ = _dims(cfg)
     f32 = dict(dtype=torch.float32, device=device)
-    z = torch.zeros((B, inner), **f32)
-    return (z, z.clone(), z.clone(), torch.full((B, inner), NEG_INF, **f32))
+    z = torch.zeros((B, _state_heads(cfg) * hd), **f32)
+    return (z, z.clone(), z.clone(), torch.full(z.shape, NEG_INF, **f32))
 
 
 # ------------------------------------------------------------------- LM ----

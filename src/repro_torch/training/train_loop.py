@@ -13,13 +13,12 @@ does the port.
 Under a mesh (``mesh=`` or the active one) the state is sharded
 (:func:`shard_state` with :func:`state_shardings`): the model's parameters
 and the moments are DTensors, each rank holding the slice the reference's
-``NamedSharding`` gives its mesh coordinate.  For the transformer family
-each step gathers the parameters over every mesh axis but ``model`` into a
-local copy of the model (``tensor_parallel.local_copy``: each weight that
-the rule table splits over ``model`` holds this rank's ``model`` shard, no
-rank a whole copy of it) and computes tensor-parallel under
-``tensor_parallel.activate``; hymba and xLSTM gather the parameters whole
-into a plain copy, their compute replicated along ``model``.  The step
+``NamedSharding`` gives its mesh coordinate.  Each step gathers the
+parameters over every mesh axis but ``model`` into a local copy of the
+model (``tensor_parallel.local_copy``: each weight that the rule table
+splits over ``model`` holds this rank's ``model`` shard, no rank a whole
+copy of it) and computes tensor-parallel under
+``tensor_parallel.activate``, every family alike.  The step
 takes the gradients of this rank's slice of the batch (dim 0 split over
 the mesh axes of ``batch``, :func:`batch_shardings`) and sums the loss,
 the metrics and the gradients over those axes, each slice weighted (in
@@ -51,14 +50,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 from repro_torch.models.model import ModelApi, build_model, family_module
 from repro_torch.training import optimizer as opt
 
 TrainState = dict  # {"params": model, "opt": adamw state}
 
 __all__ = ["TrainState", "batch_shardings", "load_work", "make_train_step",
-           "shard_state", "state_shardings", "tensor_parallel", "work_copy"]
+           "shard_state", "state_shardings", "work_copy"]
 
 
 def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
@@ -169,46 +167,22 @@ def _empty(cfg: ArchConfig, model: nn.Module, device) -> nn.Module:
                device=device)
 
 
-def _plain_copy(cfg: ArchConfig, model: nn.Module) -> nn.Module:
-    """An empty plain model of ``model``'s class, shapes and dtypes (the
-    parameters uninitialised), on its device."""
-    work = _empty(cfg, model, next(model.parameters()).device)
-    want = {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
-    got = {n: (tuple(p.shape), p.dtype) for n, p in work.named_parameters()}
-    if want != got:
-        raise ValueError("the plain copy's parameters differ from the "
-                         "sharded model's")
-    return work.requires_grad_(True)
-
-
-def tensor_parallel(cfg: ArchConfig) -> bool:
-    """Whether a mesh step of ``cfg`` computes tensor-parallel along
-    ``model`` (the transformer family; hymba and xLSTM gather whole
-    parameters)."""
-    return family_module(cfg)[0] is transformer
-
-
 def work_copy(cfg: ArchConfig, model: nn.Module, mesh) -> nn.Module:
-    """The model a mesh step computes on for the sharded ``model``: a
-    tensor-parallel local copy (:func:`tensor_parallel`) or a plain whole
-    one, empty, ``requires_grad`` on; :func:`load_work` fills it."""
-    if tensor_parallel(cfg):
-        return tp.local_copy(model, mesh,
-                             lambda dev: _empty(cfg, model, dev))
-    return _plain_copy(cfg, model)
+    """The model a mesh step computes on for the sharded ``model``: its
+    tensor-parallel local copy (``tensor_parallel.local_copy``), empty,
+    ``requires_grad`` on; :func:`load_work` fills it."""
+    return tp.local_copy(model, mesh, lambda dev: _empty(cfg, model, dev))
 
 
 @torch.no_grad()
 def load_work(cfg: ArchConfig, work: nn.Module, model: nn.Module,
               mesh) -> None:
     """Copy the sharded ``model``'s parameters into ``work``
-    (:func:`work_copy`): gathered over every mesh axis but ``model`` for a
-    local copy, whole for a plain one."""
+    (:func:`work_copy`), each gathered over every mesh axis but
+    ``model``."""
     wp = dict(work.named_parameters())
-    gather = (lambda p: tp.local_of(p, mesh)) if tensor_parallel(cfg) \
-        else shd.full
     for n, p in model.named_parameters():
-        wp[n].copy_(gather(p))
+        wp[n].copy_(tp.local_of(p, mesh))
 
 
 def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
@@ -219,7 +193,6 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
     use_pod = adamw.pod_compression and "pod" in names
     rules = shd.current_rules()
     batch_rule = shd._as_tuple(rules.resolve("batch", mesh))
-    par = tensor_parallel(cfg)
     work = {}
 
     def split_axes(B: int) -> tuple:
@@ -254,8 +227,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
         """This rank's shard of the gradient ``g`` of the work copy's
         parameter for the sharded ``p``."""
         spec = shd.spec_of(p)
-        return shd.local_slice(g, mesh, tp.without_model(spec) if par
-                               else spec)
+        return shd.local_slice(g, mesh, tp.without_model(spec))
 
     def train_step(state: TrainState, batch):
         model, ostate = state["params"], state["opt"]
@@ -268,7 +240,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
             work["split"] = frozenset(
                 n for n, p in model.named_parameters()
                 if tp.model_dims(shd.spec_of(p))) \
-                if par and tp.model_group(mesh) is not None else frozenset()
+                if tp.model_group(mesh) is not None else frozenset()
         load_work(cfg, work["model"], model, mesh)
         axes = split_axes(next(iter(batch.values())).shape[0])
         part = local_batch(batch, axes)
@@ -284,7 +256,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
             groups = [mesh.get_group(a) for a in data_axes]
             moe = L.moe_batch_stats(
                 lambda t: _BatchSum.apply(t, groups, 1.0 / w), n_slices)
-        with moe, (tp.activate(mesh) if par else contextlib.nullcontext()):
+        with moe, tp.activate(mesh):
             loss, metrics, grads = compute_grads(work["model"], part)
         keys = list(metrics)
         vals = weighted_sum([loss.clone()]
@@ -293,8 +265,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
         loss, metrics = vals[0], dict(zip(keys, vals[1:]))
         weighted_sum(list(grads.values()), w, data_axes)
         if use_pod:
-            ef = {n: tp.local_of(e, mesh) if par else shd.full(e)
-                  for n, e in ostate["ef"].items()}
+            ef = {n: tp.local_of(e, mesh) for n, e in ostate["ef"].items()}
             grads, ef = opt.pod_compressed_mean(grads, ef, "pod", mesh,
                                                 split=work["split"])
             with torch.no_grad():

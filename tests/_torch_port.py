@@ -377,12 +377,13 @@ def flash_decode_inputs() -> dict:
 
 
 # ------------------------------------------------- distributed checks ----
-# ``tests/test_torch_distributed.py`` runs every check that needs processes
-# in one gloo group of DIST_WORLD ranks on the CPU: ``dist_main`` (its own
-# interpreter, which never imports jax) imports the port once, forks the
-# ranks and waits for them; each rank runs every check of DIST_CHECKS in
-# order (the collectives need every rank in step) and saves what it found
-# to ``rank<r>.pt``; the test process compares that with the JAX package.
+# ``tests/test_torch_distributed.py`` and ``tests/test_torch_tp_recurrent.py``
+# each run their checks that need processes in one gloo group of DIST_WORLD
+# ranks on the CPU: ``dist_main`` (its own interpreter, which never imports
+# jax) imports the port once, forks the ranks and waits for them; each rank
+# runs every check of its DIST_GROUPS entry in order (the collectives need
+# every rank in step) and saves what it found to ``rank<r>.pt``; the test
+# process compares that with the JAX package.
 DIST_WORLD = 8
 DIST_TIMEOUT_S = 240
 
@@ -429,7 +430,13 @@ def _local_numpy(tensors: dict) -> dict:
 class _LargestTensor:
     """A dispatch walk that keeps the most elements of any tensor an op
     made (a DTensor op's output counts its local tensor; a tensor on
-    ``meta`` holds nothing and is left out)."""
+    ``meta`` holds nothing and is left out), but for tensors of the shapes
+    in ``skip``: those of the parameters that every rank holds whole
+    (xLSTM's ``r`` where the ranks do not divide its heads), whose
+    gradients and moments are whole too."""
+
+    def __init__(self, skip=()):
+        self.skip = frozenset(skip)
 
     def __enter__(self):
         import torch
@@ -444,7 +451,8 @@ class _LargestTensor:
                 for t in tree_leaves(out):
                     if isinstance(t, torch.Tensor):
                         t = t.to_local() if hasattr(t, "to_local") else t
-                        if t.device.type != "meta":
+                        if t.device.type != "meta" and \
+                                tuple(t.shape) not in walk.skip:
                             walk.numel = max(walk.numel, t.numel())
                 return out
 
@@ -463,21 +471,26 @@ def _run_mesh_step(shape, names, acfg, tokens, steps, arch="qwen2.5-14b",
     parameter (after minus before, f64); the gathered parameters and the
     opt state's DTensors after the steps; the shapes of the step's work
     copy (``train_step.work``) and the most elements of any tensor the
-    steps made."""
+    steps made (but for those of the shape of a parameter the spec leaves
+    whole over ``model``)."""
     import numpy as np
     import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training.train_loop import make_train_step
 
     mesh = make_mesh(shape, names, "cpu")
     cfg = _dist_cfg(arch, **cfg_kw)
     api, state, _ = _dist_state(cfg, 0, acfg, mesh)
+    whole = {tuple(p.shape) for p in state["params"].parameters()
+             if not tp.model_dims(shd.spec_of(p))}
     before = {n: v.astype(np.float64) for n, v in _local_numpy(
         dict(state["params"].named_parameters())).items()}
     step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
     batch = {"tokens": torch.from_numpy(tokens)}
     metrics = []
-    with _LargestTensor() as walk:
+    with _LargestTensor(whole) as walk:
         for _ in range(steps):
             state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
@@ -522,19 +535,35 @@ def _check_moe_step(rank, inp, work):
 TP_SOFTCAP = 30.0       # gemma3's tensor-parallel check: a logit softcap
 
 
-def _check_tp_gemma3(rank, inp, work):
-    """gemma3-12b's smoke config (window layers, tied vocab-parallel table)
-    with a logit softcap, two steps on a (2, 4) data/model mesh from zero
-    moments."""
+def _tp_step(rank, inp, arch, **cfg_kw):
+    """``arch``'s smoke config, two steps on a (2, 4) data/model mesh from
+    zero moments."""
     from repro_torch.training import optimizer as opt
 
     acfg = opt.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
     _, _, out = _run_mesh_step((2, 4), ("data", "model"), acfg,
-                               inp["tokens"], 2, arch="gemma3-12b",
-                               logit_softcap=TP_SOFTCAP)
+                               inp["tokens"], 2, arch=arch, **cfg_kw)
     if rank:
         del out["params"]
     return out
+
+
+def _check_tp_gemma3(rank, inp, work):
+    """gemma3-12b's smoke config (window layers, tied vocab-parallel table)
+    with a logit softcap."""
+    return _tp_step(rank, inp, "gemma3-12b", logit_softcap=TP_SOFTCAP)
+
+
+def _check_tp_hymba(rank, inp, work):
+    """hymba-1.5b's smoke config: over model 4 ranks 0-1 hold only xm's
+    columns of each ``mamba.w_in``, ranks 2-3 only z's."""
+    return _tp_step(rank, inp, "hymba-1.5b")
+
+
+def _check_tp_xlstm(rank, inp, work):
+    """xlstm-1.3b's smoke config: 2 heads over model 4, half a head a
+    rank (the gathered-heads path)."""
+    return _tp_step(rank, inp, "xlstm-1.3b")
 
 
 TP_DECODE_STEPS = 4
@@ -546,27 +575,51 @@ TP_STRADDLE = dict(n_heads=10, n_kv_heads=5, head_dim=8)
 TP_CONFIGS = {"qwen2.5-14b": ("qwen2.5-14b", {}),
               "gemma3-12b": ("gemma3-12b", {"flash_decode_shards": True}),
               "straddle": ("qwen2.5-14b", TP_STRADDLE)}
+# the hybrid and SSM families, in a gloo group of their own
+# (``tests/test_torch_tp_recurrent.py``)
+TP_RECURRENT = {"hymba-1.5b": ("hymba-1.5b", {}),
+                "xlstm-1.3b": ("xlstm-1.3b", {})}
 
 
 def _decode_run(cfg, model, prompt, feed=None):
     """``forward(last_only=True)``'s logits of ``prompt`` (B, S), then
     ``prefill``'s and TP_DECODE_STEPS decode steps' (as numpy), each step
     fed the argmax of ``feed``'s logits of the step before (this run's own
-    where ``feed`` is None)."""
+    where ``feed`` is None).  hymba and xLSTM have no ``prefill``: the
+    prompt goes through decode steps a token at a time (after hymba's
+    meta tokens, ``prime_cache``), the last step's logits in its place;
+    ``state_shapes`` are then the shapes of each layer's recurrent state
+    at the end (hymba's conv and SSM states, xLSTM's cell states)."""
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.models.model import family_module
 
+    mod, _ = family_module(cfg)
     batch = {"tokens": torch.from_numpy(prompt)}
     with torch.no_grad():
-        fwd, _ = T.forward(cfg, model, batch, last_only=True)
-        logits, cache = T.prefill(cfg, model, batch, 64)
+        fwd, _ = mod.forward(cfg, model, batch, last_only=True)
+        if mod is T:
+            logits, cache = T.prefill(cfg, model, batch, 64)
+        else:
+            cache = mod.init_decode_cache(cfg, prompt.shape[0], 64, "cpu")
+            if cfg.n_meta_tokens:
+                cache = mod.prime_cache(cfg, model, cache)
+            for t in batch["tokens"].unbind(1):
+                logits, cache = mod.decode_step(cfg, model, cache, t)
         steps = [logits.numpy()]
         for i in range(TP_DECODE_STEPS):
             tok = (feed or steps)[i].argmax(-1)
-            logits, cache = T.decode_step(cfg, model, cache,
-                                          torch.from_numpy(tok))
+            logits, cache = mod.decode_step(cfg, model, cache,
+                                            torch.from_numpy(tok))
             steps.append(logits.numpy())
-    return {"forward": fwd[:, 0].numpy(), "steps": steps}
+    out = {"forward": fwd[:, 0].numpy(), "steps": steps}
+    if mod is not T:
+        out["state_shapes"] = [
+            {k: tuple(v.shape) for k, v in layer[1].items()}
+            if isinstance(layer, tuple) else
+            [tuple(v.shape) for v in layer.value]
+            for layer in cache["layers"]]
+    return out
 
 
 def _straddle_step(tokens, mesh=None):
@@ -588,41 +641,39 @@ def _straddle_step(tokens, mesh=None):
                         for n, p in params.items()})}
 
 
-def tp_plain_runs(prompt, tokens) -> dict:
-    """The plain path of what ``_check_tp_decode`` runs tensor-parallel,
-    once in the test process (every rank would make the same): each of
-    TP_CONFIGS' :func:`_decode_run` from ``api.init(0)``, and the
-    ``straddle`` config's :func:`_straddle_step` under ``train``."""
+def tp_plain_runs(prompt, tokens, configs=None) -> dict:
+    """The plain path of what ``_check_tp_decode`` (``configs`` None) or
+    ``_check_tp_recurrent_decode`` (TP_RECURRENT) runs tensor-parallel,
+    once in the test process (every rank would make the same): each
+    config's :func:`_decode_run` from ``api.init(0)``, and for the
+    former the ``straddle`` config's :func:`_straddle_step` under
+    ``train``."""
     from repro_torch.models.model import build_model
 
     out = {}
-    for key, (arch, kw) in TP_CONFIGS.items():
+    for key, (arch, kw) in (configs or TP_CONFIGS).items():
         cfg = _dist_cfg(arch, **kw)
         out[key] = _decode_run(cfg, build_model(cfg, "cpu").init(0), prompt)
-    out["train"] = _straddle_step(tokens)
+    if configs is None:
+        out["train"] = _straddle_step(tokens)
     return out
 
 
-def _check_tp_decode(rank, inp, work):
-    """TP_CONFIGS' smoke models (gemma3-12b with ``flash_decode_shards``),
-    tensor-parallel on the (2, 4) mesh from the mesh step's work copy of
-    the sharded parameters: ``forward(last_only=True)``'s logits,
-    ``prefill``'s and TP_DECODE_STEPS decode steps' (each fed the plain
-    path's argmax, ``inp["tp_plain"]`` from :func:`tp_plain_runs`); the
-    local copy's parameter shapes; and the ``straddle`` config's train
-    step on the mesh."""
-    import torch
+def _tp_decode_runs(configs, inp, mesh) -> dict:
+    """Each of ``configs``' smoke models tensor-parallel on ``mesh`` from
+    the mesh step's work copy of the sharded parameters: its
+    :func:`_decode_run` (each step fed the plain path's argmax,
+    ``inp["tp_plain"]`` from :func:`tp_plain_runs`) and the local copy's
+    parameter shapes."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.interop import param_axes
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
     from repro_torch.training.train_loop import (load_work, shard_state,
                                                  work_copy)
 
-    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
     out = {}
-    for key, (arch, kw) in TP_CONFIGS.items():
+    for key, (arch, kw) in configs.items():
         cfg = _dist_cfg(arch, **kw)
         api = build_model(cfg, "cpu")
         sharded = api.init(0)
@@ -639,8 +690,29 @@ def _check_tp_decode(rank, inp, work):
                                    inp["tp_plain"][key]["steps"])
         out[key]["work_shapes"] = {n: tuple(p.shape) for n, p in
                                    local.named_parameters()}
+    return out
+
+
+def _check_tp_decode(rank, inp, work):
+    """TP_CONFIGS' smoke models (gemma3-12b with ``flash_decode_shards``)
+    through :func:`_tp_decode_runs` on the (2, 4) mesh, and the
+    ``straddle`` config's train step on it."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    out = _tp_decode_runs(TP_CONFIGS, inp, mesh)
     out["train"] = _straddle_step(inp["tokens"], mesh)
     return out
+
+
+def _check_tp_recurrent_decode(rank, inp, work):
+    """TP_RECURRENT's smoke models through :func:`_tp_decode_runs`: hymba's
+    conv and SSM states and xLSTM's cell states on the rank's channels and
+    heads, on the (2, 4) mesh."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return _tp_decode_runs(TP_RECURRENT, inp, make_mesh(
+        (2, 4), ("data", "model"), "cpu"))
 
 
 def _check_pod_step(rank, inp, work):
@@ -824,12 +896,24 @@ DIST_CHECKS = {
     "tp_gemma3": _check_tp_gemma3, "tp_decode": _check_tp_decode,
     "gpipe": _check_gpipe, "pod_mean": _check_pod_mean,
     "launch_train": _check_launch_train,
+    # tests/test_torch_tp_recurrent.py's group
+    "tp_hymba": _check_tp_hymba, "tp_xlstm": _check_tp_xlstm,
+    "tp_recurrent_decode": _check_tp_recurrent_decode,
+}
+# the checks of each group (``dist_main``'s ``group``): one a test file,
+# each file under tests/test_oracle.py's 16 tests (ROADMAP "Time budget")
+DIST_GROUPS = {
+    "mesh": ("mesh_step", "moe_step", "pod_step", "reshard",
+             "jax_checkpoint", "flash_decode", "decode_step", "tp_gemma3",
+             "tp_decode", "gpipe", "pod_mean", "launch_train"),
+    "tp_recurrent": ("tp_hymba", "tp_xlstm", "tp_recurrent_decode"),
 }
 
 
-def dist_worker(rank: int, work: str) -> None:
-    """One rank: every check of DIST_CHECKS, each one's seconds, saved to
-    ``<work>/rank<r>.pt``; a failure writes ``<work>/rank<r>.err``."""
+def dist_worker(rank: int, work: str, group: str = "mesh") -> None:
+    """One rank: every check of ``DIST_GROUPS[group]``, each one's seconds,
+    saved to ``<work>/rank<r>.pt``; a failure writes
+    ``<work>/rank<r>.err``."""
     import datetime
     import time
     import traceback
@@ -845,9 +929,9 @@ def dist_worker(rank: int, work: str) -> None:
             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
         inp = torch.load(f"{work}/inputs.pt", weights_only=False)
         out, secs = {}, {}
-        for name, fn in DIST_CHECKS.items():
+        for name in DIST_GROUPS[group]:
             t0 = time.perf_counter()
-            out[name] = fn(rank, inp, work)
+            out[name] = DIST_CHECKS[name](rank, inp, work)
             secs[name] = time.perf_counter() - t0
         out["seconds"] = secs
         torch.save(out, f"{work}/rank{rank}.pt")
@@ -859,10 +943,10 @@ def dist_worker(rank: int, work: str) -> None:
         raise
 
 
-def dist_main(work: str) -> None:
-    """Fork DIST_WORLD ranks of :func:`dist_worker` (the port imported once,
-    before the fork) and wait; when one fails, stop the others and exit
-    non-zero with its traceback."""
+def dist_main(work: str, group: str = "mesh") -> None:
+    """Fork DIST_WORLD ranks of :func:`dist_worker` running ``group``'s
+    checks (the port imported once, before the fork) and wait; when one
+    fails, stop the others and exit non-zero with its traceback."""
     import multiprocessing as mp
     import sys
     import time
@@ -877,7 +961,7 @@ def dist_main(work: str) -> None:
     import repro_torch.launch.train  # noqa: F401
 
     ctx = mp.get_context("fork")
-    procs = [ctx.Process(target=dist_worker, args=(r, work))
+    procs = [ctx.Process(target=dist_worker, args=(r, work, group))
              for r in range(DIST_WORLD)]
     for p in procs:
         p.start()

@@ -122,12 +122,10 @@ def _inputs(work) -> dict:
     return inp
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Every rank's results of ``_torch_port.DIST_CHECKS`` (one gloo group
-    of 8 ranks, one thread each) and the inputs they read."""
-    work = tmp_path_factory.mktemp("dist")
-    inp = _inputs(work)
+def run_ranks(work, inp, group):
+    """Every rank's results of ``_torch_port.DIST_GROUPS[group]`` (one
+    gloo group of 8 ranks, one thread each), the ranks reading ``inp``
+    (saved under ``work``)."""
     torch.save({k: v for k, v in inp.items() if k != "jax_state"},
                work / "inputs.pt")
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
@@ -135,13 +133,22 @@ def ranks(tmp_path_factory):
                    [os.path.join(REPO, "src"), os.path.join(REPO, "tests")]))
     r = subprocess.run(
         [sys.executable, "-c",
-         f"import _torch_port; _torch_port.dist_main({str(work)!r})"],
+         f"import _torch_port; _torch_port.dist_main({str(work)!r}, "
+         f"{group!r})"],
         capture_output=True, text=True, env=env, cwd=REPO,
         timeout=_torch_port.DIST_TIMEOUT_S + 60)
     assert r.returncode == 0, f"{r.stdout[-2000:]}\n{r.stderr[-6000:]}"
-    out = [torch.load(work / f"rank{k}.pt", weights_only=False)
-           for k in range(_torch_port.DIST_WORLD)]
-    return out, inp, work
+    return [torch.load(work / f"rank{k}.pt", weights_only=False)
+            for k in range(_torch_port.DIST_WORLD)]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every rank's results of the ``mesh`` group's checks and the inputs
+    they read."""
+    work = tmp_path_factory.mktemp("dist")
+    inp = _inputs(work)
+    return run_ranks(work, inp, "mesh"), inp, work
 
 
 def _plain_run(cfg, acfg, tokens, steps):
@@ -314,21 +321,18 @@ def _local_shape(shape, spec):
     return tuple(d // 4 if r == "model" else d for d, r in zip(shape, spec))
 
 
-@pytest.mark.parametrize("check", list(TP_CASES))
-def test_tp_step_matches_reference(ranks, check):
-    """Two tensor-parallel steps on (2, 4) data/model from zero moments
-    against the reference's ``make_train_step`` on the whole batch from the
-    same weights: qwen2.5-14b (q heads divide over model 4, its kv heads'
-    columns do not: gathered), gemma3 (window layers, softcap, a tied
-    vocab-parallel table) and olmoe (experts over model, the router's
-    statistics over data).  The loss and the gradient norm within
-    STEP_TOL, every rank's update of every shard within STEP_TOL of the
-    reference's at its coordinate and within the case's tolerance in
-    relative norm; each rank's work copy holds every ``model``-split weight as its
+def check_tp_step(ranks, check, arch, kw, tol):
+    """``check``'s two tensor-parallel steps of ``arch``'s smoke config
+    (``kw`` over it) on (2, 4) data/model from zero moments against the
+    reference's ``make_train_step`` on the whole batch from the same
+    weights: the loss and the gradient norm within STEP_TOL, every rank's
+    update of every shard within STEP_TOL of the reference's at its
+    coordinate and within ``tol`` in relative norm (the NOISE_LEAVES left
+    out); each rank's work copy holds every ``model``-split weight as its
     quarter (whole over data) and no tensor of the steps is as large as
-    the largest such weight whole."""
+    the largest such weight whole (but for those of the shape of a
+    parameter every rank holds whole)."""
     out, inp, _ = ranks
-    arch, kw, tol = TP_CASES[check]
     cfg = smoke_config(arch).replace(**kw)
     jcfg = jax_smoke(arch.replace("-", "_").replace(".", "_")).replace(**kw)
     akw = dict(lr=1e-3, warmup=1, total_steps=10)
@@ -372,24 +376,29 @@ def test_tp_step_matches_reference(ranks, check):
         ([o[check]["largest"] for o in out], largest)
 
 
-def test_tp_prefill_and_decode_match_plain(ranks):
-    """Tensor-parallel on (2, 4) from the sharded parameters' work copy,
-    qwen2.5-14b's smoke model, gemma3's with ``flash_decode_shards`` (the
-    pools split over model too) and qwen's with 10 over 5 heads, whose
-    q heads straddle GQA groups on every rank: ``forward(last_only=True)``'s
-    logits, ``prefill``'s and four decode steps' within DECODE_TOL of the
-    plain path's (``_torch_port.tp_plain_runs``, here); every rank's copy
-    holds each ``model``-split weight as its quarter; the straddling
-    config's train step within STEP_TOL of the plain step."""
-    out, inp, _ = ranks
-    plain = inp["tp_plain"]
-    for key, (arch, kw) in _torch_port.TP_CONFIGS.items():
+@pytest.mark.parametrize("check", list(TP_CASES))
+def test_tp_step_matches_reference(ranks, check):
+    """Two tensor-parallel steps on (2, 4) data/model against the
+    reference's whole-batch step (:func:`check_tp_step`): qwen2.5-14b (q
+    heads divide over model 4, its kv heads' columns do not: gathered),
+    gemma3 (window layers, softcap, a tied vocab-parallel table) and
+    olmoe (experts over model, the router's statistics over data)."""
+    check_tp_step(ranks, check, *TP_CASES[check])
+
+
+def check_tp_decode(out, plain, configs):
+    """Every rank's ``_torch_port._tp_decode_runs`` of ``configs`` against
+    the plain path's (``plain``, from ``_torch_port.tp_plain_runs``):
+    ``forward(last_only=True)``'s logits, the prompt's and the decode
+    steps' within DECODE_TOL; each rank's copy holds each ``model``-split
+    weight as its quarter, and some weight is split."""
+    for key, (arch, kw) in configs.items():
         model = build_model(smoke_config(arch).replace(**kw), "cpu").init(0)
         axes = interop.param_axes(model)
         jmesh = AbstractMesh((2, 4), ("data", "model"))
         n_split = 0
-        for o in out:
-            r = o["tp_decode"][key]
+        for r in out:
+            r = r[key]
             np.testing.assert_allclose(r["forward"], plain[key]["forward"],
                                        **DECODE_TOL)
             assert len(r["steps"]) == 1 + _torch_port.TP_DECODE_STEPS
@@ -401,6 +410,20 @@ def test_tp_prefill_and_decode_match_plain(ranks):
                 assert r["work_shapes"][n] == _local_shape(p.shape, spec), n
                 n_split += "model" in spec
         assert n_split > 0
+
+
+def test_tp_prefill_and_decode_match_plain(ranks):
+    """Tensor-parallel on (2, 4) from the sharded parameters' work copy,
+    qwen2.5-14b's smoke model, gemma3's with ``flash_decode_shards`` (the
+    pools split over model too) and qwen's with 10 over 5 heads, whose
+    q heads straddle GQA groups on every rank: ``forward(last_only=True)``'s
+    logits, ``prefill``'s and four decode steps' within DECODE_TOL of the
+    plain path's (:func:`check_tp_decode`); the straddling config's train
+    step within STEP_TOL of the plain step."""
+    out, inp, _ = ranks
+    plain = inp["tp_plain"]
+    check_tp_decode([o["tp_decode"] for o in out], plain,
+                    _torch_port.TP_CONFIGS)
     want = plain["train"]
     for o in out:
         got = o["tp_decode"]["train"]

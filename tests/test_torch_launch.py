@@ -222,6 +222,30 @@ def test_dryrun_flops_on_meta_equal_a_cpu_run():
             assert cpu["memory"] == meta["memory"], arch
 
 
+def test_dryrun_recurrent_cells_on_meta_equal_a_cpu_run():
+    """hymba's and xLSTM's smoke configs on (2, 4), tensor-parallel along
+    model in a train, a prefill and a decode cell, counted on ``meta`` and
+    on CPU tensors: equal FLOPs, collective bytes and memory; each cell's
+    rank holds a quarter of the inner dimension, so the steps all-gather
+    (the up-projections' parts) and all-reduce (the row-parallel
+    products) over model."""
+    with dryrun.fake_process_group(8):
+        for arch in ("hymba_1_5b", "xlstm_1_3b"):
+            for shape in ("train_4k", "prefill_32k", "decode_32k"):
+                cell = ShapeCell(shape, 16, 8, SHAPES[shape].kind)
+                kw = dict(cfg_override=smoke_config(arch), cell=cell,
+                          mesh_shape=(2, 4))
+                meta = dryrun.run_cell(arch, shape, False, **kw)
+                cpu = dryrun.run_cell(arch, shape, False, device="cpu",
+                                      **kw)
+                assert meta["hlo"]["flops"] > 0, (arch, shape)
+                assert cpu["hlo"] == meta["hlo"], (arch, shape)
+                assert cpu["memory"] == meta["memory"], (arch, shape)
+                coll = meta["hlo"]["coll_bytes"]
+                assert coll.get("all-gather", 0) > 0, (arch, shape, coll)
+                assert coll.get("all-reduce", 0) > 0, (arch, shape, coll)
+
+
 def test_dryrun_cells_of_every_kind():
     """gemma3-1b's and hymba's smoke configs in a prefill and a decode cell
     on (2, 4): the reference's keys, the roofline's chips the mesh's, the

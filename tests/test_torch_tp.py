@@ -20,7 +20,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers as L
-from repro_torch.models.model import build_model
+from repro_torch.models import xlstm as X
+from repro_torch.models.model import build_model, family_module
 
 from _torch_port import fast_reference_compiles  # noqa: F401
 
@@ -169,5 +170,158 @@ def test_model_group_and_the_local_copy_on_a_fake_world():
             want = tuple(d // 4 if r == "model" else d
                          for d, r in zip(shapes[n], spec))
             assert tuple(p.shape) == want and p.requires_grad, n
+    finally:
+        dist.destroy_process_group()
+
+
+# the three weights whose columns are parts side by side, at full width:
+# (config, parts, whole columns)
+PART_WEIGHTS = {"hymba-1.5b mamba.w_in": ("hymba-1.5b", 2, 6400),
+                "xlstm-1.3b mLSTM w_up": ("xlstm-1.3b", 2, 8192),
+                "xlstm-1.3b sLSTM w_in": ("xlstm-1.3b", 4, 16384)}
+
+
+def _emulated_parts(monkeypatch, whole, n, parts, spans_of=None):
+    """Every rank's :func:`tp.parts_of_model` of its block of ``whole``
+    (1, cols) over ``n`` ranks, and of each one's gradient of a random
+    ``g`` (the same f64 draw for a rank each time), the all-gathers served
+    from the ranks' blocks and gradients in this process."""
+    blocks = list(whole.chunk(n, dim=1))
+    served = {}
+
+    def all_gather(out, x, group=None):
+        for o, t in zip(out, served["list"]):
+            o.copy_(t)
+    monkeypatch.setattr(tp.dist, "all_gather", all_gather)
+    prev = tp._CTX.tp
+    try:
+        ys, grads = [], []
+        for r in range(n):
+            tp._CTX.tp = tp.ModelGroup(None, n, r)
+            served["list"] = blocks
+            ys.append(tp.parts_of_model(blocks[r].clone().requires_grad_(),
+                                        whole.shape[1], parts, dim=1,
+                                        spans_of=spans_of))
+        gen = torch.Generator().manual_seed(n)
+        gs = [torch.randn(y.shape, dtype=torch.float64, generator=gen)
+              for y in ys]
+        most = max(g.shape[1] for g in gs)
+        for r in range(n):
+            tp._CTX.tp = tp.ModelGroup(None, n, r)
+            served["list"] = [torch.cat([g, g.new_zeros(
+                (1, most - g.shape[1]))], 1) for g in gs]
+            leaf = ys[r].grad_fn.next_functions[0][0].variable \
+                if ys[r].grad_fn is not None else None
+            ys[r].backward(gs[r])
+            grads.append(leaf.grad if leaf is not None else None)
+    finally:
+        tp._CTX.tp = prev
+    return ys, gs, grads
+
+
+def test_parts_of_model_at_full_width(monkeypatch):
+    """For each of PART_WEIGHTS (one test, so that this file stays under
+    tests/test_oracle.py's 16 tests), over model 2, 4, 8 and 16, at full
+    width (one row), the column
+    blocks of the reference's layout (where the ranks are a multiple of
+    the parts, each rank's block lies in one part): each rank's
+    ``parts_of_model`` is its ``1 / size`` of every part, in part order,
+    and each block's gradient is the sum of the ranks' gradients of the
+    columns it holds; the
+    sLSTM's and mLSTM's covering-head spans (xlstm-1.3b's 4 heads of 1024
+    over 8 and 16 ranks: ranks share a head) too, their overlapping
+    gradients summed."""
+    for arch, parts, cols in PART_WEIGHTS.values():
+        _parts_at_full_width(monkeypatch, arch, parts, cols)
+
+
+def _parts_at_full_width(monkeypatch, arch, parts, cols):
+    whole = torch.arange(cols, dtype=torch.float64)[None]
+    W = cols // parts
+    for n in (2, 4, 8, 16):
+        if n % parts == 0:      # each rank's own block lies in one part
+            assert all(int(b[0, 0]) // W == int(b[0, -1]) // W
+                       for b in whole.chunk(n, 1))
+        c = W // n
+        ys, gs, grads = _emulated_parts(monkeypatch, whole, n, parts)
+        want_g = torch.zeros_like(whole)
+        for r in range(n):
+            cols_r = torch.cat([torch.arange(p * W + r * c, p * W + (r + 1)
+                                             * c) for p in range(parts)])
+            assert torch.equal(ys[r][0], whole[0, cols_r]), (n, r)
+            want_g[0, cols_r] += gs[r][0]
+        for r in range(n):
+            assert torch.equal(grads[r], want_g.chunk(n, 1)[r]), (n, r)
+        if arch != "xlstm-1.3b" or n < 8:
+            continue
+        cfg = get_config(arch)
+        spans_of = X._head_spans(cfg, n, parts)
+        ys, gs, grads = _emulated_parts(monkeypatch, whole, n, parts,
+                                        spans_of)
+        hd = W // cfg.n_heads
+        want_g = torch.zeros_like(whole)
+        for r in range(n):
+            h = r * c // hd                 # one whole head a rank
+            cols_r = torch.cat([torch.arange(p * W + h * hd, p * W + (h + 1)
+                                             * hd) for p in range(parts)])
+            assert torch.equal(ys[r][0], whole[0, cols_r]), (n, r)
+            want_g[0, cols_r] += gs[r][0]
+        for r in range(n):
+            assert torch.allclose(grads[r], want_g.chunk(n, 1)[r],
+                                  rtol=1e-12, atol=1e-12), (n, r)
+
+
+def test_local_copy_of_hymba_and_xlstm_at_full_size():
+    """hymba-1.5b's and xlstm-1.3b's local copies on a fake world of 16,
+    over model 2, 4, 8 and 16: every parameter whole over data and its
+    ``1 / size`` on each dimension the reference's ``_spec_for_shape``
+    splits over model, whole elsewhere (xLSTM's ``r`` and its mLSTM
+    decode state whole-headed where the ranks do not divide its 4 heads:
+    a rank's state is the one head its quarter-head of channels falls
+    in); hymba's decode states a rank's 1 / size of d_inner."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.training.train_loop import shard_state, work_copy
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=16)
+    try:
+        for arch in ("hymba-1.5b", "xlstm-1.3b"):
+            cfg = get_config(arch)
+            for n in (2, 4, 8, 16):
+                mesh = make_mesh((16 // n, n), ("data", "model"), "cpu")
+                model = family_module(cfg)[1](cfg, device="meta")
+                shapes = {k: tuple(p.shape) for k, p in
+                          model.named_parameters()}
+                axes = interop.param_axes(model)
+                sh = shd.param_shardings(axes, mesh, shapes=dict(
+                    model.named_parameters()))
+                sharded = shard_state({"params": model, "opt": {}},
+                                      {"params": sh})["params"]
+                local = work_copy(cfg, sharded, mesh)
+                jmesh = AbstractMesh((16 // n, n), ("data", "model"))
+                split = 0
+                for k, p in local.named_parameters():
+                    spec = tuple(jshd._spec_for_shape(
+                        axes[k], shapes[k], jmesh, jshd.current_rules()))
+                    want = tuple(d // n if r == "model" else d
+                                 for d, r in zip(shapes[k], spec))
+                    assert tuple(p.shape) == want, (arch, n, k)
+                    split += "model" in spec
+                assert split > 0
+                with tp.activate(mesh):
+                    cache = build_model(cfg, "meta").init_decode_cache(
+                        2, 64)
+                layer = cache["layers"][0]
+                if arch == "hymba-1.5b":
+                    di = 2 * cfg.d_model // n
+                    assert layer[1]["conv"].shape == (2, 3, di)
+                    assert layer[1]["state"].shape == (2, di, 16)
+                else:
+                    hd = int(cfg.proj_factor * cfg.d_model) // cfg.n_heads
+                    nh = max(cfg.n_heads // n, 1)
+                    assert layer.value[0].shape == (2, nh, hd, hd), n
+                    r = dict(local.named_parameters())["blocks.7.r"]
+                    assert r.shape[1] == (4 // n if n <= 4 else 4), n
     finally:
         dist.destroy_process_group()

@@ -3,7 +3,7 @@
 
     python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
         [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
-        [mesh_train:gemma3-1b] [flash_decode_shards] [mesh_tp:gemma3-1b]
+        [mesh_train:gemma3-1b] [flash_decode_shards] [mesh_tp]
         [dryrun] [--seed 0] [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
@@ -13,9 +13,10 @@ backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
 more step) and ``train_ckpt`` the training phases,
 ``mesh_train:gemma3-1b`` and ``flash_decode_shards`` the mesh phases (on
 a world-1 NCCL group, started for them and ended after; ``--profile``
-traces 16 decode steps with and without the mesh), ``mesh_tp:gemma3-1b``
-the tensor-parallel train step in two processes sharing the card over
-gloo, held against the plain steps, ``dryrun`` the dry
+traces 16 decode steps with and without the mesh), ``mesh_tp`` the
+tensor-parallel train steps of ``chip_smoke.MESH_TP_CELLS`` (gemma3-1b,
+hymba-1.5b, xlstm-1.3b) in two processes sharing the card over gloo, each
+cell held against its plain steps, ``dryrun`` the dry
 run's child process held against ``mesh_train:gemma3-1b``'s peak (which it
 runs beside the child when it has not run yet), ``serve:ARCH`` a
 serving phase of
@@ -86,10 +87,10 @@ def main() -> int:
                                   dev, args.seed, attn, args.profile))
             finally:
                 cs.stop_world1()
-        elif phase == "mesh_tp:gemma3-1b":
+        elif phase == "mesh_tp":
             child = cs.start_mesh_tp(args.seed)
             try:
-                out[phase] = cs.mesh_tp_phase(child)
+                out.update(cs.mesh_tp_phase(child))
             finally:
                 cs.stop_children(child[0])
         elif phase == "dryrun":
