@@ -111,12 +111,12 @@ Phases, each of which must pass or the script exits non-zero:
    under a fault model, partitioned and shared, on the card and on the
    CPU: every op's outputs and ``RuntimeState`` and every drain's
    ``Completions`` (the weighted-fair stream) bit-identical;
-9. serving: qwen2.5-14b at full width in bf16, its depth cut to 16 of its
+9. serving: qwen2.5-14b at full width in bf16, its depth cut to 12 of its
    48 layers for the script's time (``SERVE_DEPTH``; random weights from
    ``--seed``) through ``ServeEngine`` with ``PagedKVManager(keep_last=
    512)``: 8 slots, max_seq 1280, 8 requests of 600-1000 prompt tokens and
    32 new tokens each; every request done, pages spilled and fetched, and
-   ``paged_attention`` launched 16 times per engine step;
+   ``paged_attention`` launched 12 times per engine step;
 10. the spill/fetch round trip at full size: B 2 after 600 decode steps,
    ``keep_last=256``, so page 0 of every layer is cold; the next step's
    logits after spill + fetch bit-identical to those without the spill;
@@ -126,8 +126,8 @@ Phases, each of which must pass or the script exits non-zero:
    SIMT flash) within atol = rtol = 2e-3, and in bfloat16 (tensor-core
    flash, which must have run) within atol 0.15 (``DVF_LIMITS``);
 12. serving the model families at full width and depth in bf16, each
-   model freed before the next (``SERVE``): gemma3-12b (cut to 16 of its
-   48 layers for the script's time, ``SERVE_DEPTH``: 14 sliding-window
+   model freed before the next (``SERVE``): gemma3-12b (cut to 12 of its
+   48 layers for the script's time, ``SERVE_DEPTH``: 10 sliding-window
    rings and 2 paged layers at ``max_seq`` 1280; 8 requests of 1030-1150
    prompt tokens, past the 1024-token window, 16 new tokens,
    ``keep_last`` 512) and olmoe-1b-7b (16 MoE layers of 64 experts, top
@@ -204,16 +204,24 @@ Phases, each of which must pass or the script exits non-zero:
    parameter's update within ``UPDATE_TOL`` (1e-4) of the plain steps' in
    relative norm; both ranks launch the flash forward and its f32
    ``simt`` backward on the cell's q heads only (xLSTM neither); each
-   rank's local weight shapes, ms a step and peak bytes printed;
+   rank's local weight shapes, ms a step and peak bytes printed.  Then
+   ZeRO-3 block by block (``mesh_fsdp:gemma3-1b``): the gemma3-1b cell on
+   a (2, 1) data/model mesh, the batch split 2 a rank, every weight's
+   d_model dimension split over data, each block gathered over data in
+   the layer loop and its gradient reduce-scattered back, held the same
+   way against the gemma3-1b cell's plain steps, the flash kernels on all
+   4 q heads, and each rank's peak within ``DRYRUN_BAND`` of the dry
+   run's prediction for that cell;
 17. the dry run (``dryrun``): one child process, with no card, started
    before the mesh phases and run beside them on one core, runs
    ``repro_torch.launch.dryrun.run_cell`` on a fake process group of 256
-   ranks on the ``meta`` device for two cells: ``mesh_train:gemma3-1b``'s
+   ranks on the ``meta`` device for three cells: ``mesh_train:gemma3-1b``'s
    own (6 layers, B 4, S 1024, f32, a (1, 1) mesh), whose predicted
    ``per_device_total`` must be within ``DRYRUN_BAND`` (0.8-1.25) of the
-   peak the mesh steps held on the card, and ``gemma3-1b|train_4k|single``
-   at full size on the 16 x 16 mesh (its memory, ``fits`` and roofline
-   printed).
+   peak the mesh steps held on the card, ``mesh_fsdp:gemma3-1b``'s (the
+   same on (2, 1), held against that cell's ranks), and
+   ``gemma3-1b|train_4k|single`` at full size on the 16 x 16 mesh (its
+   memory, ``fits`` and roofline printed).
 
 With ``--profile``, one more BFS and two CC rounds, the first 64
 wavefronts of the demand and readahead scans, 8 rounds of the partitioned
@@ -2504,11 +2512,12 @@ SERVE = {
     "xlstm-1.3b": ((200, 400), 32, 128, 512, (150, 183)),
 }
 # Depth cuts of the served deployments, for the script's time (the
-# training and tensor-parallel phases came after them), widths unchanged:
-# qwen2.5-14b serves 16 of its 48 layers, every one paged; gemma3-12b 16 of
-# its 48, 14 rings and 2 paged layers, its prompts still past the
-# 1024-token window.
-SERVE_DEPTH = {"qwen2.5-14b": 16, "gemma3-12b": 16}
+# training and mesh phases came after them), widths unchanged:
+# qwen2.5-14b serves 12 of its 48 layers, every one paged; gemma3-12b 12 of
+# its 48, 10 rings and 2 paged layers, its prompts still past the
+# 1024-token window (24 layers before the mesh_tp cells, 16 before the
+# mesh_fsdp cell).
+SERVE_DEPTH = {"qwen2.5-14b": 12, "gemma3-12b": 12}
 
 
 def serving_phase(dev, seed, counters, arch="qwen2.5-14b", profile=False,
@@ -3590,6 +3599,10 @@ with dryrun.fake_process_group(256):
         "gemma3-1b", "train_4k", False,
         cfg_override=cfg.replace(n_layers=6, dtype="float32"),
         cell=ShapeCell("mesh_train", 1024, 4, "train"), mesh_shape=(1, 1))
+    out["mesh_fsdp"] = dryrun.run_cell(
+        "gemma3-1b", "train_4k", False,
+        cfg_override=cfg.replace(n_layers=6, dtype="float32"),
+        cell=ShapeCell("mesh_fsdp", 1024, 4, "train"), mesh_shape=(2, 1))
     out["train_4k"] = dryrun.run_cell("gemma3-1b", "train_4k", False)
 print(json.dumps(out))
 """
@@ -3619,8 +3632,11 @@ def dryrun_phase(mesh_train, child=None) -> dict:
     the card (``mesh_train``'s ``step_peak_bytes``), and (b)
     ``gemma3-1b|train_4k|single`` at full size on the 16 x 16 mesh: its
     memory, ``fits`` and roofline (CPU model outputs for the H100's peaks,
-    not card times).  ``child`` is one started earlier; ``wait_s`` is what
-    the phase adds to the run after the mesh phases."""
+    not card times), and (c) ``mesh_fsdp:gemma3-1b``'s cell (that of (a)
+    on a (2, 1) mesh), returned for :func:`fsdp_vs_dryrun` to hold against
+    the ranks' steps after ``mesh_tp``.  ``child`` is one started earlier;
+    ``wait_s`` is what the phase adds to the run after the mesh
+    phases."""
     proc, t_start = child or start_dryrun()
     t0 = time.perf_counter()
     try:
@@ -3646,7 +3662,10 @@ def dryrun_phase(mesh_train, child=None) -> dict:
                              ratio=ratio),
              train_4k=dict(memory=b["memory"], hlo=b["hlo"],
                            roofline=b["roofline"], peaks=b["peaks"],
-                           timings=b["timings"]))
+                           timings=b["timings"]),
+             mesh_fsdp=dict(memory=out["mesh_fsdp"]["memory"],
+                            hlo=out["mesh_fsdp"]["hlo"],
+                            timings=out["mesh_fsdp"]["timings"]))
     m = b["memory"]
     log(f"dryrun (a) mesh_train:gemma3-1b: predicted per_device_total "
         f"{a['memory']['per_device_total']} bytes (arguments "
@@ -3727,6 +3746,15 @@ MESH_TP_CELLS = {
 }
 
 
+# ``mesh_fsdp:gemma3-1b``: ZeRO-3 block by block, the gemma3-1b cell's
+# settings (MESH_TP_CELLS) on a (MESH_TP_WORLD, 1) data/model mesh: each
+# rank half the batch and its half of every weight's d_model dimension,
+# each block gathered over data in the layer loop and its gradient
+# reduce-scattered back; held against the gemma3-1b cell's plain steps
+MESH_FSDP_ARCH = "gemma3-1b"
+MESH_FSDP_SHAPE = (MESH_TP_WORLD, 1)
+
+
 def mesh_tp_adamw(arch: str):
     """The AdamW settings of ``MESH_TP_CELLS[arch]``: ``mesh_train``'s,
     with the cell's ``eps`` where it sets one."""
@@ -3736,34 +3764,36 @@ def mesh_tp_adamw(arch: str):
                            eps=MESH_TP_CELLS[arch].get("eps", 1e-8))
 
 
-def _gather_model(tensors: dict, group) -> dict:
-    """Each DTensor of ``tensors`` (name -> DTensor on the (1,
-    MESH_TP_WORLD) mesh) whole: its local shard gathered over ``model`` on
-    each dimension its spec splits there."""
+def _gather_whole(tensors: dict, mesh) -> dict:
+    """Each DTensor of ``tensors`` (name -> DTensor on ``mesh``) whole: its
+    local shard gathered over ``data`` (``tensor_parallel.local_of``), then
+    over ``model`` on each dimension its spec splits there."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tp
 
-    out = {}
+    out, n = {}, shd._size(mesh, "model")
     with torch.no_grad():
-        for n, p in tensors.items():
-            x = p.to_local()
-            for d in tp.model_dims(shd.spec_of(p)):
-                parts = [torch.empty_like(x) for _ in range(MESH_TP_WORLD)]
-                dist.all_gather(parts, x.contiguous(), group=group)
+        for name, p in tensors.items():
+            x = tp.local_of(p, mesh)
+            for d in tp.model_dims(shd.spec_of(p)) if n > 1 else ():
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x.contiguous(),
+                                group=mesh.get_group("model"))
                 x = torch.cat(parts, d)
-            out[n] = x
+            out[name] = x
     return out
 
 
-def _held_to_plain(arch, metrics, pm, full, plain_params, init) -> dict:
-    """The tensor-parallel ``metrics`` and gathered parameters ``full``
-    against the plain steps' ``pm`` and ``plain_params``, both from the
-    parameters ``init`` (f64): losses and gradient norms and parameters
-    within STEP_TOL, each parameter's update within ``update_tol`` in relative
-    norm (the cell's ``update_tol``; raises otherwise).  Returns the
-    largest differences."""
+def _held_to_plain(name, metrics, pm, full, plain_params, init,
+                   tol) -> dict:
+    """The mesh cell ``name``'s ``metrics`` and gathered parameters
+    ``full`` against the plain steps' ``pm`` and ``plain_params``, both
+    from the parameters ``init`` (f64): losses and gradient norms and
+    parameters within STEP_TOL, each parameter's update within ``tol`` in
+    relative norm (raises otherwise).  Returns the largest
+    differences."""
     import torch
 
     errs = {}
@@ -3771,7 +3801,7 @@ def _held_to_plain(arch, metrics, pm, full, plain_params, init) -> dict:
         got = torch.tensor([m[k] for m in metrics], dtype=torch.float64)
         want = torch.tensor([m[k] for m in pm], dtype=torch.float64)
         if not torch.allclose(got, want, **STEP_TOL):
-            raise AssertionError(f"mesh_tp:{arch}: {k} {got.tolist()} "
+            raise AssertionError(f"{name}: {k} {got.tolist()} "
                                  f"against plain {want.tolist()}")
         errs[k] = float((got - want).abs().max())
     worst, bad, upd = 0.0, [], {}
@@ -3786,13 +3816,12 @@ def _held_to_plain(arch, metrics, pm, full, plain_params, init) -> dict:
             upd[n] = float((f.double() - i - want).norm()
                            / want.norm().clamp(min=1e-30))
     if bad:
-        raise AssertionError(f"mesh_tp:{arch}: parameters beyond STEP_TOL "
-                             f"of the plain steps: {bad}")
+        raise AssertionError(f"{name}: parameters beyond STEP_TOL of the "
+                             f"plain steps: {bad}")
     top = sorted(upd.items(), key=lambda kv: -kv[1])[:4]
-    tol = MESH_TP_CELLS[arch]["update_tol"]
     if top[0][1] > tol:
-        raise AssertionError(f"mesh_tp:{arch}: updates beyond {tol} of the "
-                             f"plain steps' in relative norm: {top}")
+        raise AssertionError(f"{name}: updates beyond {tol} of the plain "
+                             f"steps' in relative norm: {top}")
     return dict(metric_errs=errs, param_max_abs_err=worst,
                 update_rel_errs=top)
 
@@ -3842,10 +3871,13 @@ def _per_step_errs(arch, state, plain, before, mesh) -> dict:
     return dict(param_max_abs_err=worst, update_rel_errs=top)
 
 
-def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
+def mesh_tp_cell(rank: int, arch: str, seed: int, dev,
+                 shape=(1, MESH_TP_WORLD), plain_run=None) -> dict:
     """One cell of ``MESH_TP_CELLS`` on this rank (see
-    :func:`mesh_tp_rank`): MESH_TRAIN_STEPS tensor-parallel steps on a (1,
-    MESH_TP_WORLD) data/model mesh, the launch counts set to 0 before each
+    :func:`mesh_tp_rank`): MESH_TRAIN_STEPS mesh steps on a ``shape``
+    data/model mesh (by default (1, MESH_TP_WORLD): tensor-parallel;
+    MESH_FSDP_SHAPE: ZeRO-3 block by block, the batch split over data),
+    the launch counts set to 0 before each
     and read after it, the flash kernels' q head counts recorded on the
     way, held against as many plain steps from the same seed and batches:
     the losses and gradient norms within STEP_TOL, the parameters within
@@ -3856,7 +3888,14 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
     tensor-parallel one from the same state and holds its shards against
     the plain step's slices (:func:`_per_step_errs`), then loads the plain
     state's slices into its shards, so each step is held alone (xLSTM's
-    rounding differences grow over chained steps: see MESH_TP_CELLS)."""
+    rounding differences grow over chained steps: see MESH_TP_CELLS).
+    ``plain_run``, a dict, carries a chained cell's plain steps to the
+    next cell of the same arch: rank 0 fills it (their metrics and final
+    parameters, on the host) when it is empty and holds the steps against
+    it, with no plain steps of its own, when it is not.  The record's
+    ``step_peak_bytes`` is what the steps held at most less what was
+    allocated before them, plus the state's shards and a batch (the dry
+    run's arguments), as ``mesh_train``'s."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3895,12 +3934,16 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
         heads["bwd"].add(q.shape[1])
         return bwd(q, *a, **kw)
 
-    mesh = make_mesh((1, MESH_TP_WORLD), ("data", "model"), "cuda")
-    group = mesh.get_group("model")
+    name = ("mesh_tp:" if shape[0] == 1 else "mesh_fsdp:") + arch
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
     state = fresh()
     state = shard_state(state, state_shardings(
         cfg, param_axes(state["params"]), mesh, state["params"], acfg))
     step = make_train_step(cfg, api, adamw=acfg, mesh=mesh)
+    held_bytes = sum(t.to_local().numel() * t.element_size() for t in (
+        list(state["params"].parameters()) + list(state["opt"]["mu"].values())
+        + list(state["opt"]["nu"].values()))) \
+        + batches[0]["tokens"].numel() * batches[0]["tokens"].element_size()
     per_step = cell["per_step"]
     plain = fresh() if per_step else None
     pstep = make_train_step(cfg, api, adamw=acfg) \
@@ -3911,6 +3954,8 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
     counters = train_counters()
     launches = {k: 0 for k in counters}
     metrics, times, peaks, pm, held = [], [], [], [], []
+    torch.cuda.synchronize()
+    before_steps = torch.cuda.memory_allocated() - plain_bytes
     for t, b in enumerate(batches):
         dist.barrier()
         for c in counters.values():
@@ -3942,7 +3987,7 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
             if not math.isclose(metrics[-1][k], pm[-1][k],
                                 rel_tol=STEP_TOL["rtol"],
                                 abs_tol=STEP_TOL["atol"]):
-                raise AssertionError(f"mesh_tp:{arch} step {t}: {k} "
+                raise AssertionError(f"{name} step {t}: {k} "
                                      f"{metrics[-1][k]} against plain "
                                      f"{pm[-1][k]}")
         held.append(_per_step_errs(arch, state, plain, before, mesh))
@@ -3963,13 +4008,14 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
     r = dict(losses=[m["loss"] for m in metrics],
              grad_norms=[m["grad_norm"] for m in metrics],
              step_s=times, ms_per_step=statistics.median(times) * 1e3,
-             peak_bytes=max(peaks), launches=launches,
+             peak_bytes=max(peaks), launches=launches, mesh=list(shape),
+             step_peak_bytes=max(peaks) - before_steps + held_bytes,
              q_heads={k: sorted(v) for k, v in heads.items()},
              local_shapes={n: local[n] for n in cell["shapes"]},
              compared="each step from the same state" if per_step
              else "chained", adamw_eps=acfg.eps)
-    full = None if per_step else _gather_model(
-        dict(state["params"].named_parameters()), group)
+    full = None if per_step else _gather_whole(
+        dict(state["params"].named_parameters()), mesh)
     del state, step, plain
     if rank == 0 and not per_step:
         gc.collect()
@@ -3977,13 +4023,22 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
         plain = fresh()
         init = {n: p.detach().double() for n, p in
                 plain["params"].named_parameters()}
-        for b in batches:
-            plain, m = pstep(plain, b)
-            pm.append({k: float(v) for k, v in m.items()})
-        held.append(_held_to_plain(
-            arch, metrics, pm, full,
-            dict(plain["params"].named_parameters()), init))
-        del plain, init
+        if plain_run:
+            del plain
+            pm = plain_run["metrics"]
+            params = {n: p.to(dev) for n, p in plain_run["params"].items()}
+        else:
+            for b in batches:
+                plain, m = pstep(plain, b)
+                pm.append({k: float(v) for k, v in m.items()})
+            params = dict(plain["params"].named_parameters())
+            del plain
+            if plain_run is not None:
+                plain_run.update(metrics=pm, params={
+                    n: p.detach().cpu() for n, p in params.items()})
+        held.append(_held_to_plain(name, metrics, pm, full, params, init,
+                                   cell["update_tol"]))
+        del params, init
     if held:
         r.update(plain_losses=[m["loss"] for m in pm],
                  plain_grad_norms=[m["grad_norm"] for m in pm],
@@ -4001,14 +4056,20 @@ def mesh_tp_cell(rank: int, arch: str, seed: int, dev) -> dict:
     return r
 
 
-def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
+MESH_CELLS = tuple(MESH_TP_CELLS) + ("mesh_fsdp",)
+
+
+def mesh_tp_rank(rank: int, store: str, go: str, seed: int,
+                 cells=MESH_CELLS) -> dict:
     """One rank of ``mesh_tp`` (see :func:`mesh_tp_phase`), in a process
     of its own: a gloo group of MESH_TP_WORLD ranks on the one card (met
     through a FileStore).  It starts the group, then waits for the file
     ``go`` (:func:`release_mesh_tp`) before it does any work on the card,
     so it can start beside timed phases without running beside them; then
-    each cell of MESH_TP_CELLS in turn (:func:`mesh_tp_cell`).  Returns
-    the rank's records (printed as JSON)."""
+    each of ``cells`` in turn (:func:`mesh_tp_cell`): the cells of
+    MESH_TP_CELLS by arch, and ``mesh_fsdp`` (MESH_FSDP_ARCH on
+    MESH_FSDP_SHAPE), which takes the plain steps of that arch's cell when
+    it ran before it.  Returns the rank's records (printed as JSON)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import build
@@ -4031,10 +4092,16 @@ def mesh_tp_rank(rank: int, store: str, go: str, seed: int) -> dict:
                                    f"{MESH_TP_GO_TIMEOUT_S} s")
             time.sleep(0.05)
         t_go = time.perf_counter()
-        for arch in MESH_TP_CELLS:
+        plain_run = {}
+        for cell in cells:
             t0 = time.perf_counter()
-            out["cells"][arch] = mesh_tp_cell(rank, arch, seed, dev)
-            out["cells"][arch]["cell_s"] = time.perf_counter() - t0
+            if cell == "mesh_fsdp":
+                r = mesh_tp_cell(rank, MESH_FSDP_ARCH, seed, dev,
+                                 MESH_FSDP_SHAPE, plain_run)
+            else:
+                r = mesh_tp_cell(rank, cell, seed, dev, plain_run=(
+                    plain_run if cell == MESH_FSDP_ARCH else None))
+            out["cells"][cell] = dict(r, cell_s=time.perf_counter() - t0)
     finally:
         dist.destroy_process_group()
     out["wall_s"] = time.perf_counter() - t_start
@@ -4047,17 +4114,19 @@ import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import chip_smoke
 print(json.dumps(chip_smoke.mesh_tp_rank(int(sys.argv[2]), sys.argv[3],
-                                         sys.argv[4], int(sys.argv[5]))))
+                                         sys.argv[4], int(sys.argv[5]),
+                                         sys.argv[6].split(","))))
 """
 
 
 MESH_TP_GO = ROOT / "build" / "chip_tp_go"
 
 
-def start_mesh_tp(seed):
-    """Start the MESH_TP_WORLD rank processes of ``mesh_tp:gemma3-1b`` (see
-    :func:`mesh_tp_phase`); they start up and wait, off the card, for
-    :func:`release_mesh_tp`.  Returns them and the start time."""
+def start_mesh_tp(seed, cells=MESH_CELLS):
+    """Start the MESH_TP_WORLD rank processes of ``mesh_tp`` running
+    ``cells`` (see :func:`mesh_tp_rank` and :func:`mesh_tp_phase`); they
+    start up and wait, off the card, for :func:`release_mesh_tp`.
+    Returns them and the start time."""
     import os
 
     store = ROOT / "build" / "chip_tp_store"
@@ -4067,7 +4136,8 @@ def start_mesh_tp(seed):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = [subprocess.Popen(
         [sys.executable, "-c", MESH_TP_CHILD, str(ROOT), str(r), str(store),
-         str(MESH_TP_GO), str(seed)], env=env, stdout=subprocess.PIPE,
+         str(MESH_TP_GO), str(seed), ",".join(cells)], env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
         for r in range(MESH_TP_WORLD)]
     return procs, time.perf_counter()
@@ -4086,25 +4156,32 @@ def stop_children(procs) -> None:
             p.communicate()
 
 
-def mesh_tp_phase(child) -> dict:
-    """``mesh_tp``: tensor-parallel training on one card, a record for each
-    cell of MESH_TP_CELLS (``mesh_tp:<arch>``).  NCCL takes one rank a
-    device, so MESH_TP_WORLD processes share the card in a gloo group on
-    CUDA tensors (:func:`start_mesh_tp`, started earlier, released here if
-    not before; :func:`mesh_tp_rank`) on a (1, 2) data/model mesh:
-    ``mesh_train``'s gemma3-1b cell (each rank 2 of the 4 q heads, half of
-    each kv projection's columns gathered to the 1 kv head, half of the
-    MLP and of the tied vocabulary), hymba-1.5b (half of d_inner a rank:
-    xm's and z's columns of ``mamba.w_in`` from both ranks' blocks, the
-    scan on the rank's channels, 13 of the 25 q heads) and xlstm-1.3b
-    (half of each mLSTM's and of the sLSTM's inner dimension, 2 of the 4
-    heads).  MESH_TRAIN_STEPS steps each; rank 0's losses, gradient norms
-    and updated parameters within STEP_TOL of as many plain steps on the
-    card, each parameter's update within the cell's ``update_tol`` in
-    relative norm (:func:`mesh_tp_cell`); on both ranks the flash forward
-    and its f32 ``simt`` backward launched on the cell's q heads only
-    (xLSTM none).  Prints
-    each rank's local weight shapes, ms a step and peak bytes."""
+def mesh_tp_phase(child, dry=None) -> dict:
+    """``mesh_tp``: mesh training on one card, a record for each cell the
+    ranks ran (``mesh_tp:<arch>``, ``mesh_fsdp:gemma3-1b``).  NCCL takes
+    one rank a device, so MESH_TP_WORLD processes share the card in a
+    gloo group on CUDA tensors (:func:`start_mesh_tp`, started earlier,
+    released here if not before; :func:`mesh_tp_rank`).  On a (1, 2)
+    data/model mesh, tensor-parallel: ``mesh_train``'s gemma3-1b cell
+    (each rank 2 of the 4 q heads, half of each kv projection's columns
+    gathered to the 1 kv head, half of the MLP and of the tied
+    vocabulary), hymba-1.5b (half of d_inner a rank: xm's and z's columns
+    of ``mamba.w_in`` from both ranks' blocks, the scan on the rank's
+    channels, 13 of the 25 q heads) and xlstm-1.3b (half of each mLSTM's
+    and of the sLSTM's inner dimension, 2 of the 4 heads).  On a (2, 1)
+    mesh, ``mesh_fsdp:gemma3-1b``: the gemma3-1b cell's batch split 2 a
+    rank, every weight's d_model dimension split over data, each block
+    gathered in the layer loop and its gradient reduce-scattered, all 4 q
+    heads a rank.  MESH_TRAIN_STEPS steps each; rank 0's losses, gradient
+    norms and updated parameters within STEP_TOL of as many plain steps
+    on the card (the FSDP cell takes the gemma3-1b cell's), each
+    parameter's update within the cell's ``update_tol`` in relative norm
+    (:func:`mesh_tp_cell`); on both ranks the flash forward and its f32
+    ``simt`` backward launched on the cell's q heads only (xLSTM none).
+    ``dry`` (:func:`dryrun_phase`'s record) holds the FSDP cell's
+    ``step_peak_bytes`` on each rank against the dry run's prediction of
+    that cell, within DRYRUN_BAND.  Prints each rank's local weight
+    shapes, ms a step and peak bytes."""
     procs, t_start = child
     release_mesh_tp()
     t0 = time.perf_counter()
@@ -4117,51 +4194,78 @@ def mesh_tp_phase(child) -> dict:
            enumerate(zip(procs, outs)) if p.returncode != 0]
     if bad:
         raise AssertionError(f"mesh_tp: ranks failed: {bad}")
+    from repro_torch.configs import get_config
+
     ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
     res = {}
-    for arch, cell in MESH_TP_CELLS.items():
-        recs = [dict(r["cells"][arch], rank=r["rank"]) for r in ranks]
+    for key in ranks[0]["cells"]:
+        fsdp = key == "mesh_fsdp"
+        arch = MESH_FSDP_ARCH if fsdp else key
+        cell = MESH_TP_CELLS[arch]
+        name = f"{key}:{arch}" if fsdp else f"mesh_tp:{arch}"
+        # data parallel: every q head on each rank
+        want = get_config(arch).n_heads if fsdp else cell["q_heads"]
+        recs = [dict(r["cells"][key], rank=r["rank"]) for r in ranks]
         for r in recs:
-            want = cell["q_heads"]
             if want is None:
                 if any(r["launches"].values()):
-                    raise AssertionError(f"mesh_tp:{arch} rank "
-                                         f"{r['rank']}: attention launched "
+                    raise AssertionError(f"{name} rank {r['rank']}: "
+                                         f"attention launched "
                                          f"{r['launches']}")
             else:
-                require_launched(f"mesh_tp:{arch} rank {r['rank']}",
-                                 r["launches"])
+                require_launched(f"{name} rank {r['rank']}", r["launches"])
                 if r["q_heads"] != {"fwd": [want], "bwd": [want]}:
                     raise AssertionError(
-                        f"mesh_tp:{arch} rank {r['rank']}: flash ran on q "
-                        f"heads {r['q_heads']}, not {want}")
-            log(f"mesh_tp:{arch} rank {r['rank']}: local shapes "
+                        f"{name} rank {r['rank']}: flash ran on q heads "
+                        f"{r['q_heads']}, not {want}")
+            log(f"{name} rank {r['rank']}: local shapes "
                 f"{r['local_shapes']}; {r['ms_per_step']:.3f} ms a step "
-                f"({r['step_s']}), peak {r['peak_bytes']} bytes; launches "
-                f"{r['launches']}; flash q heads {r['q_heads']}; "
-                f"{r['cell_s']:.3f} s")
+                f"({r['step_s']}), peak {r['peak_bytes']} bytes (the steps "
+                f"held {r['step_peak_bytes']}); launches {r['launches']}; "
+                f"flash q heads {r['q_heads']}; {r['cell_s']:.3f} s")
         r0 = recs[0]
-        log(f"mesh_tp:{arch} ({cell['layers']} layers, B {cell['B']}, S "
-            f"{cell['S']}, f32, (1, 2) on one card over gloo): losses "
-            f"{r0['losses']} against plain {r0['plain_losses']}, grad norms "
-            f"{r0['grad_norms']} against {r0['plain_grad_norms']} (largest "
-            f"differences {r0['metric_errs']}), parameters within "
+        log(f"{name} ({cell['layers']} layers, B {cell['B']}, S "
+            f"{cell['S']}, f32, {tuple(r0['mesh'])} on one card over "
+            f"gloo): losses {r0['losses']} against plain "
+            f"{r0['plain_losses']}, grad norms {r0['grad_norms']} against "
+            f"{r0['plain_grad_norms']} (largest differences "
+            f"{r0['metric_errs']}), parameters within "
             f"{r0['param_max_abs_err']} (STEP_TOL {STEP_TOL}), the largest "
             f"relative errors of the updates {r0['update_rel_errs']} "
             f"(within {cell['update_tol']}; {r0['compared']}, AdamW eps "
             f"{r0['adamw_eps']})")
-        res[f"mesh_tp:{arch}"] = dict(
+        res[name] = dict(
             ranks=recs, launches={k: sum(r["launches"][k] for r in recs)
                                   for k in r0["launches"]},
             ms_per_step=[r["ms_per_step"] for r in recs],
             peak_bytes=[r["peak_bytes"] for r in recs],
+            step_peak_bytes=[r["step_peak_bytes"] for r in recs],
             cell_s=[r["cell_s"] for r in recs])
+        if fsdp and dry is not None:
+            res[name]["dryrun"] = fsdp_vs_dryrun(name, recs, dry)
     log(f"mesh_tp: {wait:.3f} s waited for the ranks; "
         f"{[r['work_s'] for r in ranks]} s of work in each; on "
         f"{nvidia_smi()}")
     for r in res.values():
         r.update(wait_s=wait, wall_s=time.perf_counter() - t_start)
     return res
+
+
+def fsdp_vs_dryrun(name, recs, dry) -> dict:
+    """The dry run's ``per_device_total`` of the FSDP cell (``dry``'s
+    ``mesh_fsdp``, rank 0 of its (2, 1) mesh) over each rank's
+    ``step_peak_bytes``, within DRYRUN_BAND (raises otherwise)."""
+    pred = dry["mesh_fsdp"]["memory"]["per_device_total"]
+    ratios = [pred / r["step_peak_bytes"] for r in recs]
+    log(f"dryrun {name}: predicted per_device_total {pred} bytes "
+        f"(arguments {dry['mesh_fsdp']['memory']['argument_bytes']}, temp "
+        f"{dry['mesh_fsdp']['memory']['temp_bytes']}) against "
+        f"{[r['step_peak_bytes'] for r in recs]} held by the ranks' steps: "
+        f"ratios {[round(x, 4) for x in ratios]}, band {DRYRUN_BAND}")
+    if not all(DRYRUN_BAND[0] <= x <= DRYRUN_BAND[1] for x in ratios):
+        raise AssertionError(f"dryrun {name}: predicted over measured peak "
+                             f"{ratios} outside {DRYRUN_BAND}")
+    return dict(predicted=pred, ratios=ratios)
 
 
 REPLACES = {
@@ -4292,9 +4396,10 @@ def main() -> int:
         dry = dryrun_phase(mesh["mesh_train:gemma3-1b"], child)
         dry["phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        training.update(mesh_tp_phase(tp_child))
-        for k in MESH_TP_CELLS:
-            training[f"mesh_tp:{k}"]["phase_s"] = time.perf_counter() - t0
+        cells = mesh_tp_phase(tp_child, dry)
+        for r in cells.values():
+            r["phase_s"] = time.perf_counter() - t0
+        training.update(cells)
     finally:
         stop_children([child[0]] + tp_child[0])
     fds = mesh["flash_decode_shards"]

@@ -452,12 +452,15 @@ def local_of(p, mesh) -> torch.Tensor:
 
 
 def local_copy(model: nn.Module, mesh,
-               make: Callable[[torch.device], nn.Module]) -> nn.Module:
+               make: Callable[[torch.device], nn.Module],
+               shards=frozenset()) -> nn.Module:
     """An empty model of ``model``'s structure whose parameters have the
     local-copy shapes of ``model``'s DTensors (:func:`local_shape`; values
     uninitialised, ``requires_grad`` on), on ``model``'s device:
     ``make(device)`` builds the model's class (here on ``meta``, so no
-    whole weight is made)."""
+    whole weight is made).  The parameters named in ``shards`` are the
+    DTensors' local tensors themselves (their storage shared, so an
+    update of the sharded model shows in the copy)."""
     work = make(torch.device("meta"))
     own = dict(work.named_parameters())
     for name, p in model.named_parameters():
@@ -467,6 +470,7 @@ def local_copy(model: nn.Module, mesh,
                              "sharded model's")
         mod, _, leaf = name.rpartition(".")
         owner = work.get_submodule(mod) if mod else work
-        setattr(owner, leaf, nn.Parameter(torch.empty(
-            local_shape(p, mesh), dtype=p.dtype, device=loc.device)))
+        setattr(owner, leaf, nn.Parameter(
+            loc.detach() if name in shards else torch.empty(
+                local_shape(p, mesh), dtype=p.dtype, device=loc.device)))
     return work

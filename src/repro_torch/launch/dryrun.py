@@ -19,14 +19,18 @@ Each cell runs what the port runs on that rank:
     state_shardings(...))`` and one real ``make_train_step(cfg,
     mesh=...)`` step on ``input_specs``' batch (pod compression off unless
     ``--compressed``, as the reference);
-  * ``prefill``: the parameters sharded by ``param_shardings``, gathered
-    into the mesh step's work copy (``train_loop.work_copy``, a
-    tensor-parallel local copy: each ``model``-split weight this rank's
-    ``model`` shard), then ``forward(..., last_only=True)`` on this rank's
+  * ``prefill``: the parameters sharded by ``param_shardings``, in the
+    mesh step's work copy (``train_loop.work_copy``, a tensor-parallel
+    local copy: each ``model``-split weight this rank's ``model`` shard;
+    the blocks' weights this rank's shards, each block gathered over
+    ``data`` in the layer loop and freed after it, ``fsdp.run_block``; the
+    rest gathered), then ``forward(..., last_only=True)`` on this rank's
     slice of the batch under ``tensor_parallel.activate``;
-  * ``decode``: the parameters held as that local copy (whole over
-    ``data``, this rank's ``model`` shards: a serving replica keeps them
-    so); this rank's slice of the batch (a data-parallel replica serves
+  * ``decode``: the parameters held as a local copy whole over ``data``
+    (``work_copy(..., blocks_sharded=False)``, this rank's ``model``
+    shards: a serving replica keeps them so across steps, where the
+    reference's compiled decode step gathers a block at a time); this
+    rank's slice of the batch (a data-parallel replica serves
     its own sequences) and its cache as the port lays it out under the
     mesh (pools split over ``model`` under ``flash_decode_shards``, else
     whole; hymba's conv and SSM states and xLSTM's cell states on the
@@ -248,7 +252,8 @@ def build_cell(cfg, cell, mesh, rules=None, pod_compression=False,
         # decode: the local copy, this rank's sequences
         sharded = shard_state({"params": model, "opt": {}},
                               {"params": p_sh})["params"]
-        model = work_copy(cfg, sharded, mesh).requires_grad_(False)
+        model = work_copy(cfg, sharded, mesh, blocks_sharded=False
+                          ).requires_grad_(False)
         load_work(cfg, model, sharded, mesh)
         del sharded
         api = build_model(cfg, device)

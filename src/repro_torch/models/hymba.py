@@ -292,7 +292,7 @@ def forward(cfg: ArchConfig, model: HymbaLM, batch: dict, *,
     for bp, w in zip(model.blocks, layer_windows(cfg)):
         x = L.remat(cfg, functools.partial(
             block_apply, cfg, bp, window=w if w < S + M else None,
-            positions=positions), x)
+            positions=positions), x, block=bp)
     x = L.norm_apply(cfg, model.ln_f, x)[:, M:]
     if last_only:
         x = x[:, -1:, :]

@@ -32,6 +32,7 @@ the partial outputs; the embedding and the logits are vocab-parallel
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -40,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.utils import segment_rank
@@ -504,12 +506,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
-def remat(cfg: ArchConfig, fn, *args):
+def remat(cfg: ArchConfig, fn, *args, block: nn.Module | None = None):
     """``fn(*args)``, its activations recomputed in the backward when
     ``cfg.remat`` is not ``"none"`` and grad is on (the reference's
     ``jax.checkpoint`` of each layer).  ``"dots_saveable"`` recomputes
     everything too: the reference keeps the products' outputs under it,
-    which changes memory and time but not a value."""
+    which changes memory and time but not a value.  ``block`` is the
+    layer's parameters (the module ``fn`` reads): in a mesh step's local
+    copy its weights are gathered over ``data`` inside the checkpointed
+    call (:func:`repro_torch.distributed.fsdp.run_block`), so the
+    recompute gathers them again and none is saved for the backward."""
+    if block is not None:
+        fn = functools.partial(fsdp.run_block, block, fn)
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False)

@@ -162,7 +162,7 @@ def _run_blocks(cfg: ArchConfig, blocks, x, windows, *, causal=True,
         fn = functools.partial(_block, cfg, bp, window=w if w < S else None,
                                positions=positions, causal=causal,
                                enc_out=enc_out)
-        x, aux_l = L.remat(cfg, fn, x)
+        x, aux_l = L.remat(cfg, fn, x, block=bp)
         for k, v in aux_l.items():
             aux[k] = aux[k] + v if k in aux else v
     return x, aux

@@ -435,7 +435,7 @@ def forward(cfg: ArchConfig, model: XLSTMLM, batch: dict, *,
     x = L.embed(cfg, model.embed, batch["tokens"])
     for i, bp in enumerate(model.blocks):
         fn = slstm_block if _is_slstm(cfg, i) else mlstm_block
-        x = L.remat(cfg, functools.partial(fn, cfg, bp), x)
+        x = L.remat(cfg, functools.partial(fn, cfg, bp), x, block=bp)
     x = L.norm_apply(cfg, model.ln_f, x)
     if last_only:
         x = x[:, -1:, :]

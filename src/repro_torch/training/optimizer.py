@@ -15,7 +15,7 @@ axis, so every norm scale and bias inside a block is decayed there, while
 ``ln_f`` and xLSTM's per-layer blocks' 1-D leaves are not
 (:func:`repro_torch.interop.reference_ndim`).
 
-``sharded_global_norm`` is the norm of a tensor-parallel step's
+``sharded_global_norm`` is the norm of a sharded step's
 gradients, some of them slices.  ``pod_compressed_mean`` is the cross-pod
 gradient mean of the
 pod-compressed train step: int8 values with one shared f32 scale a tensor
@@ -61,19 +61,24 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
-def sharded_global_norm(grads: dict, split, group) -> torch.Tensor:
+def sharded_global_norm(grads: dict, split: dict, mesh) -> torch.Tensor:
     """:func:`global_norm` of gradients of which those named in ``split``
-    are this rank's slices of tensors split over the ranks of ``group``
-    (a tensor-parallel step's): their squares summed over the group, the
-    others (whole and the same on every rank) counted once.  With nothing
-    split it is :func:`global_norm` itself."""
+    are this rank's slices of tensors split over the ranks of the mesh
+    axes ``split[name]`` (a sharded step's shards: over ``model``, over
+    ``data``, or both): the squares of the tensors of each set of axes
+    summed over those axes, the others (whole and the same on every rank)
+    counted once.  With nothing split it is :func:`global_norm` itself."""
     import torch.distributed as dist
 
     if not split:
         return global_norm(grads.values())
-    sq = sum(torch.sum(torch.square(g.float()))
-             for n, g in grads.items() if n in split)
-    dist.all_reduce(sq, group=group)
+    sq = None
+    for axes in dict.fromkeys(split.values()):
+        s = sum(torch.sum(torch.square(g.float()))
+                for n, g in grads.items() if split.get(n) == axes)
+        for a in axes:
+            dist.all_reduce(s, group=mesh.get_group(a))
+        sq = s if sq is None else sq + s
     return torch.sqrt(sq + sum(torch.sum(torch.square(g.float()))
                                for n, g in grads.items() if n not in split))
 
@@ -124,7 +129,7 @@ def quantize_int8(x: torch.Tensor):
 
 @torch.no_grad()
 def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
-                        mesh=None, split=frozenset()):
+                        mesh=None, split=None):
     """int8 error-feedback mean over the ``axis`` ranks of ``mesh``
     (default: the active mesh).  ``grads`` and ``ef`` are dicts of tensors
     keyed alike (the gradient and residual of this rank's pod); returns
@@ -134,9 +139,10 @@ def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
     (an all-reduce MAX); ``q = round(gf / scale)`` (half to even) clipped
     to +-127 as int8; ``q_sum`` its int32 SUM; ``mean = q_sum * scale / n``
     in the gradient's dtype; ``e' = gf - q * scale``.  The tensors named
-    in ``split`` are this rank's slices of tensors split over the mesh's
-    ``model`` axis (a tensor-parallel step's), whose scale is the whole
-    tensor's: its max is also taken over ``model``."""
+    in ``split`` are this rank's slices of tensors split over the mesh
+    axes ``split[name]`` (a sharded step's shards, over ``data`` and
+    ``model``), whose scale is the whole tensor's: its max is also taken
+    over those axes (``axis`` itself, when named, is skipped)."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import current_mesh
@@ -150,9 +156,10 @@ def pod_compressed_mean(grads: dict, ef: dict, axis: str = "pod",
         # shared scale: one tiny max-reduce, then exact int32 accumulation
         scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
         dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
-        if name in split:
-            dist.all_reduce(scale, op=dist.ReduceOp.MAX,
-                            group=mesh.get_group("model"))
+        for a in (split or {}).get(name, ()):
+            if a != axis:
+                dist.all_reduce(scale, op=dist.ReduceOp.MAX,
+                                group=mesh.get_group(a))
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         # wire bytes: int8 payload (+ one f32 scale per tensor); gloo and
         # NCCL sum in int32 here, which the int8 range cannot overflow

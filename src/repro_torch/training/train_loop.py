@@ -13,25 +13,35 @@ does the port.
 Under a mesh (``mesh=`` or the active one) the state is sharded
 (:func:`shard_state` with :func:`state_shardings`): the model's parameters
 and the moments are DTensors, each rank holding the slice the reference's
-``NamedSharding`` gives its mesh coordinate.  Each step gathers the
-parameters over every mesh axis but ``model`` into a local copy of the
-model (``tensor_parallel.local_copy``: each weight that the rule table
-splits over ``model`` holds this rank's ``model`` shard, no rank a whole
-copy of it) and computes tensor-parallel under
-``tensor_parallel.activate``, every family alike.  The step
-takes the gradients of this rank's slice of the batch (dim 0 split over
-the mesh axes of ``batch``, :func:`batch_shardings`) and sums the loss,
-the metrics and the gradients over those axes, each slice weighted (in
-place) by its share of the loss tokens, which gives the reference's global
-mean; then AdamW updates the local shards, the gradient norm that of the
-whole gradients (``optimizer.sharded_global_norm``: the squares of the
-``model``-split gradients summed over ``model``).  With
-``pod_compression`` and a ``pod`` axis the step is the reference's
-``per_pod``: the exact weighted mean over ``data`` within a pod, then
-``pod_compressed_mean`` over ``pod`` for the gradients (``ef`` in the opt
-state, each pod its own residual), the loss and metrics averaged over
-``pod``.  MoE's auxiliary losses are nonlinear in the batch (the router's
-load statistics), so when the batch is split the step puts ``moe_ffn``
+``NamedSharding`` gives its mesh coordinate.  Each step computes on a
+local copy of the model (:func:`work_copy`; each weight that the rule
+table splits over ``model`` holds this rank's ``model`` shard, no rank a
+whole copy of it) tensor-parallel under ``tensor_parallel.activate``,
+every family alike.  ZeRO-3 block by block, as the reference's compiled
+step: the blocks' parameters in the copy are the rank's shards
+themselves, each block gathered over ``data`` inside its remat region in
+the layer loop and its gradient reduce-scattered back to the shard in the
+backward (:mod:`repro_torch.distributed.fsdp`), so a rank holds one
+block's whole weights and gradient at a time; the parameters outside the
+blocks (the embedding and head, final norms, learned positions, hymba's
+meta tokens, the VLM projection) are gathered for the step, as the
+reference gathers them outside its loop.  The step takes the gradients
+of this rank's slice of the batch (dim 0 split over the mesh axes of
+``batch``, :func:`batch_shardings`), each slice's loss weighted by its
+share of the loss tokens before the backward (which gives the
+reference's global mean once summed), and sums the loss, the metrics
+and the gradients over those axes: a block gradient arrives summed over
+the axes that split its weight, the others are all-reduced; then AdamW
+updates the local shards, the gradient norm that of the whole gradients
+(``optimizer.sharded_global_norm``: the squares of each shard summed
+over the axes that split it).  With ``pod_compression`` and a ``pod``
+axis the step is the reference's ``per_pod``: the exact weighted mean
+over ``data`` within a pod, then ``pod_compressed_mean`` over ``pod``
+for each rank's shards (``ef`` in the opt state, kept as the rank's
+shard, each pod its own residual; the scale the whole tensor's), the
+loss and metrics averaged over ``pod``.  MoE's auxiliary losses are
+nonlinear in the batch (the router's load statistics), so when the batch
+is split the step puts ``moe_ffn``
 under :func:`repro_torch.models.layers.moe_batch_stats`: the router's sums
 are all-reduced over the split's axes (within a pod when pods compress),
 and their backward scales this slice's share by ``1 / w`` so that the
@@ -47,6 +57,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
@@ -76,17 +87,19 @@ def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
     adamw = adamw or opt.AdamWConfig()
     lr_fn = opt.cosine_schedule(adamw.lr, adamw.warmup, adamw.total_steps)
 
-    def grad_fn(model, params, batch):
+    def grad_fn(model, params, batch, seed):
         loss, metrics = api.loss(model, batch)
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, grad_outputs=seed)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def compute_grads(model, batch):
+    def compute_grads(model, batch, seed=None):
+        """The loss, metrics and the gradients of ``seed`` (a scalar, by
+        default 1) times the loss."""
         model.requires_grad_(True)
         names, params = zip(*model.named_parameters())
         if microbatches == 1:
-            loss, metrics, grads = grad_fn(model, params, batch)
+            loss, metrics, grads = grad_fn(model, params, batch, seed)
             return loss, metrics, dict(zip(names, grads))
         b = next(iter(batch.values())).shape[0]
         if b % microbatches:
@@ -98,7 +111,7 @@ def make_train_step(cfg: ArchConfig, api: Optional[ModelApi] = None, *,
         loss_sum = torch.zeros((), device=params[0].device)
         for i in range(microbatches):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics, grads = grad_fn(model, params, part)
+            loss, metrics, grads = grad_fn(model, params, part, seed)
             for a, g in zip(acc, grads):
                 a.add_(g)
             loss_sum = loss_sum + loss
@@ -167,22 +180,37 @@ def _empty(cfg: ArchConfig, model: nn.Module, device) -> nn.Module:
                device=device)
 
 
-def work_copy(cfg: ArchConfig, model: nn.Module, mesh) -> nn.Module:
+def work_copy(cfg: ArchConfig, model: nn.Module, mesh, *,
+              blocks_sharded: bool = True) -> nn.Module:
     """The model a mesh step computes on for the sharded ``model``: its
-    tensor-parallel local copy (``tensor_parallel.local_copy``), empty,
-    ``requires_grad`` on; :func:`load_work` fills it."""
-    return tp.local_copy(model, mesh, lambda dev: _empty(cfg, model, dev))
+    tensor-parallel local copy, ``requires_grad`` on.  Its block
+    parameters are this rank's shards themselves, each block gathered
+    over ``data`` in the layer loop (:func:`fsdp.local_copy`); with
+    ``blocks_sharded=False`` (a serving replica, which keeps its weights
+    across steps) every parameter is whole over every axis but ``model``
+    (``tensor_parallel.local_copy``).  The other parameters are empty:
+    :func:`load_work` fills them."""
+    def make(dev):
+        return _empty(cfg, model, dev)
+    if blocks_sharded:
+        return fsdp.local_copy(model, mesh, make)
+    return tp.local_copy(model, mesh, make)
 
 
 @torch.no_grad()
 def load_work(cfg: ArchConfig, work: nn.Module, model: nn.Module,
               mesh) -> None:
-    """Copy the sharded ``model``'s parameters into ``work``
-    (:func:`work_copy`), each gathered over every mesh axis but
-    ``model``."""
+    """Fill ``work`` (:func:`work_copy`) from the sharded ``model``: each
+    parameter gathered over every mesh axis but ``model``, but the block
+    parameters of a copy made with ``blocks_sharded``, which are pointed
+    at the model's shards again (no copy)."""
     wp = dict(work.named_parameters())
+    shards = fsdp.shard_names(work)
     for n, p in model.named_parameters():
-        wp[n].copy_(tp.local_of(p, mesh))
+        if n in shards:
+            wp[n].data = p.to_local()
+        else:
+            wp[n].copy_(tp.local_of(p, mesh))
 
 
 def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
@@ -213,21 +241,43 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
                                    + (None,) * (v.ndim - 1))
                 for k, v in batch.items()}
 
-    def weighted_sum(tensors, w, axes):
-        """Each of ``tensors`` times ``w`` in place, summed over the ranks
-        of ``axes`` (one all-reduce an axis, in mesh order)."""
-        for t in tensors:
-            t.mul_(w)
+    def sum_over(tensors, axes):
+        """Each of ``tensors`` summed in place over the ranks of ``axes``
+        (one all-reduce an axis, in mesh order)."""
         for a in axes:
             for t in tensors:
                 dist.all_reduce(t, group=mesh.get_group(a))
         return tensors
 
-    def shard_of(g, p):
+    def weighted_sum(tensors, w, axes):
+        """Each of ``tensors`` times ``w`` in place, summed over the ranks
+        of ``axes``."""
+        for t in tensors:
+            t.mul_(w)
+        return sum_over(tensors, axes)
+
+    def reduce_grads(grads, data_axes):
+        """The gradients of the weighted loss summed over ``data_axes``:
+        a block gradient arrives summed over the axes that split its
+        weight (its shard, ``fsdp.scatter_block``), so it is summed over
+        the rest of ``data_axes`` only, and divided by the ranks of its
+        axes that do not split the batch (they computed the same slice);
+        every other gradient is summed over all of ``data_axes``."""
+        for n, g in grads.items():
+            got = work["fsdp"].get(n, ())
+            sum_over([g], tuple(a for a in data_axes if a not in got))
+            same = shd._axis_size(mesh, tuple(a for a in got
+                                              if a not in data_axes))
+            if same > 1:
+                g.div_(same)
+
+    def shard_of(n, g, p):
         """This rank's shard of the gradient ``g`` of the work copy's
-        parameter for the sharded ``p``."""
-        spec = shd.spec_of(p)
-        return shd.local_slice(g, mesh, tp.without_model(spec))
+        parameter ``n`` for the sharded ``p``: a block gradient is one
+        already."""
+        if n in work["blocks"]:
+            return g
+        return shd.local_slice(g, mesh, tp.without_model(shd.spec_of(p)))
 
     def train_step(state: TrainState, batch):
         model, ostate = state["params"], state["opt"]
@@ -236,11 +286,20 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
                              "with shard_state(state, state_shardings(...))")
         if work.get("src") is not model:
             work["src"], work["model"] = model, work_copy(cfg, model, mesh)
-            # the gradients that are this rank's model shards
-            work["split"] = frozenset(
-                n for n, p in model.named_parameters()
-                if tp.model_dims(shd.spec_of(p))) \
-                if tp.model_group(mesh) is not None else frozenset()
+            specs = {n: shd.spec_of(p) for n, p in model.named_parameters()}
+            work["blocks"] = fsdp.shard_names(work["model"])
+            # the axes each block gradient arrives summed over
+            work["fsdp"] = {n: fsdp.split_axes(specs[n], mesh)
+                            for n in work["blocks"]}
+            if use_pod and any("pod" in a for a in work["fsdp"].values()):
+                raise NotImplementedError(
+                    "a block weight split over pod under pod compression")
+            # the axes whose ranks hold slices of each gradient's shard
+            work["split"] = {
+                n: a for n, a in ((n, tuple(
+                    x for x in names if shd._size(mesh, x) > 1 and any(
+                        x in shd._as_tuple(r) for r in spec)))
+                    for n, spec in specs.items()) if a}
         load_work(cfg, work["model"], model, mesh)
         axes = split_axes(next(iter(batch.values())).shape[0])
         part = local_batch(batch, axes)
@@ -248,7 +307,7 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
         # tokens; within a pod only over data when pods compress
         data_axes = tuple(a for a in axes if not (use_pod and a == "pod"))
         n_loc = _loss_tokens(part)
-        (n_all,) = weighted_sum([n_loc.clone()], 1.0, data_axes)
+        (n_all,) = sum_over([n_loc.clone()], data_axes)
         w = n_loc / n_all
         n_slices = shd._axis_size(mesh, data_axes)
         moe = contextlib.nullcontext()
@@ -256,31 +315,33 @@ def _mesh_step(cfg, mesh, compute_grads, adamw, lr_fn):
             groups = [mesh.get_group(a) for a in data_axes]
             moe = L.moe_batch_stats(
                 lambda t: _BatchSum.apply(t, groups, 1.0 / w), n_slices)
+        # the gradients of w times the loss: the block gradients are
+        # summed over data in the backward, each slice already weighted
         with moe, tp.activate(mesh):
-            loss, metrics, grads = compute_grads(work["model"], part)
+            loss, metrics, grads = compute_grads(work["model"], part, w)
         keys = list(metrics)
         vals = weighted_sum([loss.clone()]
                             + [metrics[k].clone() for k in keys], w,
                             data_axes)
         loss, metrics = vals[0], dict(zip(keys, vals[1:]))
-        weighted_sum(list(grads.values()), w, data_axes)
+        reduce_grads(grads, data_axes)
+        shards = {n: shard_of(n, grads[n], p)
+                  for n, p in model.named_parameters()}
+        del grads
         if use_pod:
-            ef = {n: tp.local_of(e, mesh) for n, e in ostate["ef"].items()}
-            grads, ef = opt.pod_compressed_mean(grads, ef, "pod", mesh,
-                                                split=work["split"])
+            shards, ef = opt.pod_compressed_mean(
+                shards, {n: e.to_local() for n, e in ostate["ef"].items()},
+                "pod", mesh, split=work["split"])
             with torch.no_grad():
                 for n, e in ostate["ef"].items():
-                    e.to_local().copy_(shard_of(ef[n], e))
+                    e.to_local().copy_(ef[n])
             n_pod = shd._size(mesh, "pod")
             vals = weighted_sum([loss] + [metrics[k] for k in keys], 1.0,
                                 ("pod",))
             loss = vals[0] / n_pod
             metrics = {k: v / n_pod for k, v in zip(keys, vals[1:])}
-        model_grp = mesh.get_group("model") if work["split"] else None
-        gnorm = opt.sharded_global_norm(grads, work["split"], model_grp)
+        gnorm = opt.sharded_global_norm(shards, work["split"], mesh)
         params = {n: p.to_local() for n, p in model.named_parameters()}
-        shards = {n: shard_of(grads[n], p)
-                  for n, p in model.named_parameters()}
         local = {"step": ostate["step"],
                  "mu": {n: m.to_local() for n, m in ostate["mu"].items()},
                  "nu": {n: v.to_local() for n, v in ostate["nu"].items()}}

@@ -681,7 +681,8 @@ def _tp_decode_runs(configs, inp, mesh) -> dict:
                                  shapes=dict(sharded.named_parameters()))
         sharded = shard_state({"params": sharded, "opt": {}},
                               {"params": sh})["params"]
-        local = work_copy(cfg, sharded, mesh).requires_grad_(False)
+        local = work_copy(cfg, sharded, mesh, blocks_sharded=False
+                          ).requires_grad_(False)
         load_work(cfg, local, sharded, mesh)
         with tp.activate(mesh), (shd.activate(mesh)
                                  if cfg.flash_decode_shards
@@ -725,7 +726,8 @@ def _check_pod_step(rank, inp, work):
     mesh, state, out = _run_mesh_step((2, 2, 2), ("pod", "data", "model"),
                                       acfg, inp["tokens"], 1)
     out.update(metrics=out["metrics"][0], pod=mesh.get_local_rank("pod"),
-               ef=_gathered_numpy(state["opt"]["ef"]))
+               ef=_gathered_numpy(state["opt"]["ef"]),
+               local_ef=_local_numpy(state["opt"]["ef"]))
     if mesh.get_local_rank("model"):
         del out["params"], out["ef"]
     return out
@@ -888,6 +890,187 @@ def _check_launch_train(rank, inp, work):
             "step": res.step}
 
 
+# --------------------------------------------------- ZeRO-3 block by block --
+# tests/test_torch_fsdp.py's group: the mesh step on meshes whose data axis
+# splits the blocks' weights, each check's arch, mesh (data, model) and
+# steps (two: the second step's gathers must see the first's update of
+# the shards in place)
+FSDP_CASES = {"fsdp_qwen": ("qwen2.5-14b", (8, 1), 2),
+              "fsdp_hymba": ("hymba-1.5b", (4, 2), 2),
+              "fsdp_xlstm": ("xlstm-1.3b", (4, 2), 2)}
+
+
+@contextlib.contextmanager
+def watch_blocks(rec: dict, fault=None):
+    """Wrap ``fsdp.gather_block`` and ``fsdp.scatter_block`` with a watcher
+    that holds weak references to the storages each block's gather made
+    and to the whole gradients each block's scatter took.  At every
+    gather and scatter it counts, in ``rec``, the other blocks' gathered
+    weights and whole gradients still alive (``overlap_fwd``,
+    ``overlap_recompute``: a gather in the backward is remat's recompute;
+    ``grads_alive``), and the gathers and scatters of each phase.
+    ``fault(plan, grads)``, when given, replaces the scatter of the blocks
+    it does not return None for (a planted fault)."""
+    import weakref
+
+    from repro_torch.distributed import fsdp
+
+    gather0, scatter0 = fsdp.gather_block, fsdp.scatter_block
+    gathered, whole = [], []
+    for k in ("gathers_fwd", "gathers_recompute", "scatters",
+              "overlap_fwd", "overlap_recompute", "grads_alive"):
+        rec.setdefault(k, 0)
+
+    def others(refs, plan):
+        return sum(1 for p, r in refs if p is not plan and r() is not None)
+
+    def gather(plan, shards):
+        bwd = torch._C._current_graph_task_id() != -1
+        rec["overlap_recompute" if bwd else "overlap_fwd"] += \
+            others(gathered, plan)
+        rec["grads_alive"] += others(whole, plan)
+        out = gather0(plan, shards)
+        gathered[:] = [(p, r) for p, r in gathered if r() is not None]
+        gathered.extend((plan, weakref.ref(t.untyped_storage()))
+                        for t in out)
+        rec["gathers_recompute" if bwd else "gathers_fwd"] += 1
+        return out
+
+    def scatter(plan, grads):
+        rec["grads_alive"] += others(whole, plan)
+        rec["overlap_recompute"] += others(gathered, plan)
+        whole[:] = [(p, r) for p, r in whole if r() is not None]
+        whole.extend((plan, weakref.ref(g.untyped_storage()))
+                     for g in grads)
+        rec["scatters"] += 1
+        out = fault(plan, grads) if fault is not None else None
+        return scatter0(plan, grads) if out is None else out
+
+    fsdp.gather_block, fsdp.scatter_block = gather, scatter
+    try:
+        yield rec
+    finally:
+        fsdp.gather_block, fsdp.scatter_block = gather0, scatter0
+        rec["alive_after"] = sum(r() is not None for _, r in gathered + whole)
+
+
+def _fsdp_step(inp, arch, shape, steps, fault=None):
+    """``steps`` mesh steps of ``arch``'s smoke config on ``shape`` data
+    / model from zero moments (:func:`_run_mesh_step`) under
+    :func:`watch_blocks`, with the shapes of the block gradients the step
+    hands AdamW (``grad_shapes``)."""
+    from repro_torch.training import optimizer as opt
+
+    acfg = opt.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    norm0, shapes = opt.sharded_global_norm, {}
+
+    def norm(grads, split, mesh):
+        shapes.update({n: tuple(g.shape) for n, g in grads.items()
+                       if n.startswith("blocks.")})
+        return norm0(grads, split, mesh)
+
+    rec = {}
+    opt.sharded_global_norm = norm
+    try:
+        with watch_blocks(rec, fault):
+            _, _, out = _run_mesh_step(shape, ("data", "model"), acfg,
+                                       inp[f"tokens{shape[0]}"], steps,
+                                       arch=arch)
+    finally:
+        opt.sharded_global_norm = norm0
+    out.update(watch=rec, grad_shapes=shapes)
+    return out
+
+
+def _check_fsdp(name):
+    def check(rank, inp, work):
+        out = _fsdp_step(inp, *FSDP_CASES[name])
+        if rank:
+            del out["params"]
+        return out
+    arch, shape, steps = FSDP_CASES[name]
+    check.__doc__ = (f"{arch}'s smoke config, {steps} steps on {shape} "
+                     "data/model from zero moments, its gathers watched.")
+    return check
+
+
+def _check_fault_unreduced(rank, inp, work):
+    """A planted fault: one step of qwen2.5-14b on (8, 1) with the second
+    block's gradient cut to the rank's shard without the sum over
+    data."""
+    seen = []
+
+    def fault(plan, grads):
+        if plan not in seen:
+            seen.append(plan)
+        if plan is not seen[-1] or len(seen) < 2:
+            return None
+        ax = plan.axes[0]
+        r = torch.distributed.get_rank(ax.group)
+        return [g.chunk(ax.size, d)[r].contiguous() if d is not None else g
+                for g, d in zip(grads, ax.dims)]
+
+    out = _fsdp_step(inp, "qwen2.5-14b", (8, 1), 1, fault)
+    if rank:
+        del out["params"]
+    return out
+
+
+def _check_fault_pod_scale(rank, inp, work):
+    """A planted fault: the pod step with ``pod_compressed_mean``'s scale
+    taken over the rank's shard only (its max not over data and model)."""
+    from repro_torch.training import optimizer as opt
+
+    mean0 = opt.pod_compressed_mean
+
+    def mean(grads, ef, axis="pod", mesh=None, split=None):
+        return mean0(grads, ef, axis, mesh)
+
+    opt.pod_compressed_mean = mean
+    try:
+        return _check_pod_step(rank, inp, work)
+    finally:
+        opt.pod_compressed_mean = mean0
+
+
+def _check_fsdp_gather(rank, inp, work):
+    """``fsdp.gather_block`` and ``fsdp.scatter_block`` of a block of
+    four parameters on a (2, 2, 2) pod/data/model mesh: ``a`` (8, 3)
+    split over (pod, data) on dim 0, ``b`` (10, 4) bf16 over model on dim
+    0 (left alone) and over data on dim 1, ``c`` (3,) unsplit, ``d`` (6,
+    2) over pod on dim 0.  Each rank's gather of its shards of the whole
+    tensors and its scatter of gradients that are those times the rank's
+    global rank plus one."""
+    from torch import nn
+
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    specs = {"a": (("pod", "data"), None), "b": ("model", "data"),
+             "c": (None,), "d": ("pod", None)}
+    full = {"a": torch.arange(24.).reshape(8, 3),
+            "b": (torch.arange(40.) % 4).reshape(10, 4).to(torch.bfloat16),
+            "c": torch.arange(3.), "d": torch.arange(12.).reshape(6, 2)}
+    block = nn.Module()
+    for n, t in full.items():
+        block.register_parameter(n, nn.Parameter(
+            shd.local_slice(t, mesh, specs[n]).clone()))
+    plan = fsdp._plan(block, "", specs, mesh)
+    shards = [getattr(block, leaf) for _, leaf in plan.leaves]
+    got = fsdp.gather_block(plan, [s.detach() for s in shards])
+    r = torch.distributed.get_rank()
+    grads = [g * (r + 1) for g in got]
+    back = fsdp.scatter_block(plan, grads)
+    return {"leaves": [leaf for _, leaf in plan.leaves],
+            "axes": [(a.name, a.dims) for a in plan.axes],
+            "coord": mesh.get_coordinate(),
+            "gathered": [g.float().numpy() for g in got],
+            "scattered": [g.float().numpy() for g in back],
+            "dtypes": [str(g.dtype) for g in back]}
+
+
 DIST_CHECKS = {
     "mesh_step": _check_mesh_step, "moe_step": _check_moe_step,
     "pod_step": _check_pod_step,
@@ -899,6 +1082,11 @@ DIST_CHECKS = {
     # tests/test_torch_tp_recurrent.py's group
     "tp_hymba": _check_tp_hymba, "tp_xlstm": _check_tp_xlstm,
     "tp_recurrent_decode": _check_tp_recurrent_decode,
+    # tests/test_torch_fsdp.py's group
+    **{k: _check_fsdp(k) for k in FSDP_CASES},
+    "fsdp_pod": _check_pod_step, "fsdp_gather": _check_fsdp_gather,
+    "fault_unreduced": _check_fault_unreduced,
+    "fault_pod_scale": _check_fault_pod_scale,
 }
 # the checks of each group (``dist_main``'s ``group``): one a test file,
 # each file under tests/test_oracle.py's 16 tests (ROADMAP "Time budget")
@@ -907,6 +1095,8 @@ DIST_GROUPS = {
              "jax_checkpoint", "flash_decode", "decode_step", "tp_gemma3",
              "tp_decode", "gpipe", "pod_mean", "launch_train"),
     "tp_recurrent": ("tp_hymba", "tp_xlstm", "tp_recurrent_decode"),
+    "fsdp": tuple(FSDP_CASES) + ("fsdp_pod", "fsdp_gather",
+                                 "fault_unreduced", "fault_pod_scale"),
 }
 
 

@@ -273,9 +273,11 @@ def _parts_at_full_width(monkeypatch, arch, parts, cols):
 
 def test_local_copy_of_hymba_and_xlstm_at_full_size():
     """hymba-1.5b's and xlstm-1.3b's local copies on a fake world of 16,
-    over model 2, 4, 8 and 16: every parameter whole over data and its
-    ``1 / size`` on each dimension the reference's ``_spec_for_shape``
-    splits over model, whole elsewhere (xLSTM's ``r`` and its mLSTM
+    over model 2, 4, 8 and 16: every parameter its ``1 / size`` on each
+    dimension the reference's ``_spec_for_shape`` splits over model, and
+    a block's parameter (the rank's shard, gathered a block at a time in
+    the layer loop) also its ``1 / data`` on the dimension it splits over
+    data, whole elsewhere (xLSTM's ``r`` and its mLSTM
     decode state whole-headed where the ranks do not divide its 4 heads:
     a rank's state is the one head its quarter-head of channels falls
     in); hymba's decode states a rank's 1 / size of d_inner."""
@@ -304,8 +306,10 @@ def test_local_copy_of_hymba_and_xlstm_at_full_size():
                 for k, p in local.named_parameters():
                     spec = tuple(jshd._spec_for_shape(
                         axes[k], shapes[k], jmesh, jshd.current_rules()))
-                    want = tuple(d // n if r == "model" else d
-                                 for d, r in zip(shapes[k], spec))
+                    block = k.startswith("blocks.")
+                    want = tuple(d // n if r == "model" else
+                                 d // (16 // n) if r == "data" and block
+                                 else d for d, r in zip(shapes[k], spec))
                     assert tuple(p.shape) == want, (arch, n, k)
                     split += "model" in spec
                 assert split > 0

@@ -4,7 +4,7 @@
     python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
         [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
         [mesh_train:gemma3-1b] [flash_decode_shards] [mesh_tp]
-        [dryrun] [--seed 0] [--profile]
+        [mesh_fsdp] [dryrun] [--seed 0] [--profile]
 
 ``attn`` runs the attention kernel phase (every flash and paged case
 against its plain version), ``attn_bwd`` the flash backward's (and the
@@ -15,8 +15,13 @@ more step) and ``train_ckpt`` the training phases,
 a world-1 NCCL group, started for them and ended after; ``--profile``
 traces 16 decode steps with and without the mesh), ``mesh_tp`` the
 tensor-parallel train steps of ``chip_smoke.MESH_TP_CELLS`` (gemma3-1b,
-hymba-1.5b, xlstm-1.3b) in two processes sharing the card over gloo, each
-cell held against its plain steps, ``dryrun`` the dry
+hymba-1.5b, xlstm-1.3b) and ``mesh_fsdp:gemma3-1b`` (ZeRO-3 block by block
+on a (2, 1) mesh, held against the gemma3-1b cell's plain steps) in two
+processes sharing the card over gloo, each cell held against its plain
+steps, ``mesh_fsdp`` the FSDP cell alone (its own plain steps) with the
+dry run's child, whose prediction of the cell's peak it holds within
+``chip_smoke.DRYRUN_BAND`` (after ``mesh_train:gemma3-1b``, which it runs
+when it has not run yet), ``dryrun`` the dry
 run's child process held against ``mesh_train:gemma3-1b``'s peak (which it
 runs beside the child when it has not run yet), ``serve:ARCH`` a
 serving phase of
@@ -93,6 +98,21 @@ def main() -> int:
                 out.update(cs.mesh_tp_phase(child))
             finally:
                 cs.stop_children(child[0])
+        elif phase == "mesh_fsdp":
+            tp_child = cs.start_mesh_tp(args.seed, ("mesh_fsdp",))
+            child = cs.start_dryrun()
+            try:
+                if "mesh_train:gemma3-1b" not in out:
+                    cs.start_world1()
+                    try:
+                        out["mesh_train:gemma3-1b"] = cs.mesh_train_phase(
+                            dev, args.seed)
+                    finally:
+                        cs.stop_world1()
+                dry = cs.dryrun_phase(out["mesh_train:gemma3-1b"], child)
+                out.update(cs.mesh_tp_phase(tp_child, dry))
+            finally:
+                cs.stop_children([child[0]] + tp_child[0])
         elif phase == "dryrun":
             child = cs.start_dryrun()
             try:
