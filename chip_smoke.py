@@ -20,6 +20,16 @@ Phases, each of which must pass or the script exits non-zero:
    ``device_ms`` (a CUDA graph of 20 calls), ``host_us`` (host time to
    issue a call), ``floor_ms`` (device time of a one-key call, the fixed
    cost) and skewed device time are recorded beside its eager ``ms``;
+   then the two queue kernels, ``sq_enqueue`` and ``wfq_drain``, bit for
+   bit against their plain versions on every output and on the six ring
+   fields after the call (``QUEUE_CHECKS``: 1, 2 and 3 segments, an empty
+   and an all-invalid one, rings filled to within a few slots of their
+   depth so back-pressure drops lanes, failed devices, stripe 2, 1, 4 and
+   8 devices, tenant 2 of 3; the drain with and without its fault model;
+   two runs of each input), one enqueue captured in a CUDA graph and
+   replayed, and both timed like the probes at the fault phase's rings
+   and BFS's (``QUEUE_SHAPES``), beside the plain version (eager; it
+   syncs) and the byte bound; both must launch on every BaM phase below;
 4. each attention kernel against its plain version within
    ``tests/test_kernels.py``'s TOL (3e-5 in f32, 3e-2 in bf16), and every
    bf16 output also against the plain version computed in f32 from the
@@ -641,6 +651,293 @@ def readahead_probe_checks(dev, gen, S, W, m):
                       ref.cache_probe_ref(d["tags"], ks, d["owner"], 0))
 
 
+# The queue kernels' shapes: the fault phase's rings (16 x 4096 over 4
+# devices, device 1 failed) with a round of 65,536 lanes in 3 segments,
+# and BFS's rings (16 x 1024 over 4 devices), whose round enqueues its
+# reads and write-backs as 2 segments of the wavefront's lanes.
+QUEUE_SHAPES = {
+    "faults": dict(nq=16, depth=4096, nd=4, failed=(1,), segs=(32768, 16384,
+                                                                16384)),
+    "bfs": dict(nq=16, depth=1024, nd=4, failed=(), segs=(16384, 16384)),
+}
+# Each check: rings, devices, stripe, tenants and the submitting tenant,
+# the segments' lengths (the indices in ``invalid`` all-invalid), and how
+# full the rings are ("half": up to half their depth in flight; "full":
+# within 2-6 slots of it, so back-pressure drops lanes).
+QUEUE_CHECKS = [
+    dict(QUEUE_SHAPES["faults"], fill="half"),
+    dict(QUEUE_SHAPES["faults"], fill="full"),
+    dict(QUEUE_SHAPES["bfs"], fill="half", segs=(16384,)),
+    dict(nq=16, depth=1024, nd=8, failed=(), stripe=2, nt=3, tenant=2,
+         segs=(4096, 0, 4096), invalid=(2,), fill="full"),
+    dict(nq=16, depth=1024, nd=8, failed=(1, 5), stripe=1, nt=3, tenant=1,
+         segs=(3000, 5000, 1), fill="half"),
+    dict(nq=4, depth=256, nd=1, failed=(), segs=(3000, 2000), fill="full"),
+]
+QUEUE_FAULT = dict(transient_error_rate=0.05, tail_latency_mult=2.0,
+                   retry_budget=1, seed=0)
+
+
+def queue_inputs(c, gen, dev):
+    """Rings holding pending commands (a tenth without a ticket) up to the
+    check's fill, and the submission's lanes: keys with negatives, a
+    twentieth invalid, the last segment readahead."""
+    import torch
+
+    nq, depth, nd = c["nq"], c["depth"], c["nd"]
+    nt = c.get("nt", 1)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    head = ri(0, 1 << 20, (nq,))
+    if c["fill"] == "full":
+        used = depth - ri(2, 7, (nq,))
+    else:
+        used = ri(0, depth // 2 + 1, (nq,))
+    slot = torch.arange(depth, device=dev, dtype=torch.int32)
+    pend = torch.remainder(slot[None, :] - head[:, None], depth) \
+        < used[:, None]
+
+    def field(x, fill):
+        return torch.where(pend, x, fill).to(x.dtype).contiguous()
+
+    ticket = ri(0, 1 << 20, (nq, depth))
+    ticket[torch.rand((nq, depth), generator=gen, device=dev) < 0.1] = -1
+    rings = dict(
+        sq_key=field(ri(0, 1 << 24, (nq, depth)), -1),
+        sq_dst=field(ri(0, 1 << 16, (nq, depth)), -1),
+        sq_is_write=field(torch.rand((nq, depth), generator=gen,
+                                     device=dev) < 0.3, False),
+        sq_prio=field(ri(0, 2, (nq, depth)), 0),
+        sq_tenant=field(ri(0, nt, (nq, depth)), 0),
+        sq_ticket=field(ticket, -1))
+    state = dict(sq_tail=head + used, sq_head=head,
+                 rr_ptr=ri(0, nq // nd, (nd,)),
+                 dev_enqueued=ri(0, 1 << 20, (nd,)))
+    segs = c["segs"]
+    n = sum(segs)
+    keys = ri(-2, 1 << 24, (n,))
+    valid = (torch.rand((n,), generator=gen, device=dev) < 0.95) & (keys >= 0)
+    prio = torch.zeros((n,), dtype=torch.int32, device=dev)
+    edges = [0]
+    for i, m in enumerate(segs):
+        edges.append(edges[-1] + m)
+        if i in c.get("invalid", ()):
+            valid[edges[i]:edges[i + 1]] = False
+    if len(segs) > 1:
+        prio[edges[-2]:] = 1
+    lanes = dict(keys=keys, dst=ri(-1, 1 << 16, (n,)),
+                 is_write=torch.rand((n,), generator=gen, device=dev) < 0.3,
+                 prio=prio, valid=valid)
+    kw = dict(seg_bounds=tuple(zip(edges[:-1], edges[1:])), n_devices=nd,
+              stripe_blocks=c.get("stripe", 1), tenant=c.get("tenant", 0),
+              failed_devices=c["failed"])
+    return rings, state, lanes, kw
+
+
+RING_FIELDS = ("sq_key", "sq_dst", "sq_is_write", "sq_prio", "sq_tenant",
+               "sq_ticket")
+PER_SEG = ("n_accepted", "n_dropped", "n_doorbells", "n_tickets",
+           "dev_dropped", "dev_accepted")
+
+
+def enqueue_call(fn, rings, state, lanes, kw):
+    """One enqueue on fresh copies of the rings: the outputs (per-segment
+    counts flattened) and the six ring fields after it."""
+    r = {k: v.clone() for k, v in rings.items()}
+    out = fn(*(r[k] for k in RING_FIELDS), *state.values(), *lanes.values(),
+             **kw)
+    return list(out[:6]) + [out[6][k] for k in PER_SEG] \
+        + [r[k] for k in RING_FIELDS]
+
+
+def drain_call(fn, rings, c, fault):
+    """One drain, with each entry's status under a fault model: the counts
+    and the fault fields, status included, in a fixed order."""
+    out = fn(rings["sq_key"], rings["sq_is_write"], rings["sq_tenant"],
+             rings["sq_ticket"], n_devices=c["nd"], n_tenants=c.get("nt", 1),
+             fault=fault, entry_status=True)
+    return list(out[:5]) + [out[5][k] for k in sorted(out[5])]
+
+
+def queue_checks(dev, gen) -> dict:
+    """Both queue kernels bit-identical to their plain versions under
+    ``QUEUE_CHECKS`` (1, 2 and 3 segments, an empty and an all-invalid
+    one, rings near full, failed devices, stripe 2, 1, 4 and 8 devices,
+    tenant 2 of 3), the drain with and without its fault model, each
+    kernel twice on one input, and one enqueue captured in a CUDA graph
+    and replayed.  Returns each check's accepted and dropped lanes."""
+    import torch
+    from repro_torch.core.ssd import FaultModel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sq_enqueue import sq_enqueue_cuda
+    from repro_torch.kernels.wfq_drain import wfq_drain_cuda
+
+    seen = []
+    for c in QUEUE_CHECKS:
+        name = (f"nq={c['nq']} depth={c['depth']} nd={c['nd']} "
+                f"failed={c['failed']} stripe={c.get('stripe', 1)} "
+                f"tenant={c.get('tenant', 0)}/{c.get('nt', 1)} "
+                f"segs={c['segs']} fill={c['fill']}")
+        rings, state, lanes, kw = queue_inputs(c, gen, dev)
+        got = enqueue_call(sq_enqueue_cuda, rings, state, lanes, kw)
+        require_equal(f"sq_enqueue {name}", got,
+                      enqueue_call(ref.sq_enqueue_ref, rings, state, lanes,
+                                   kw))
+        require_equal(f"sq_enqueue {name}, second run", got,
+                      enqueue_call(sq_enqueue_cuda, rings, state, lanes, kw))
+        after = dict(zip(RING_FIELDS, got[-6:]))
+        for fault in (None, FaultModel(failed_devices=c["failed"],
+                                       **QUEUE_FAULT)):
+            for r in (rings, after):
+                d = drain_call(wfq_drain_cuda, r, c, fault)
+                require_equal(f"wfq_drain {name} fault={fault is not None}",
+                              d, drain_call(ref.wfq_drain_ref, r, c, fault))
+                require_equal(f"wfq_drain {name}, second run", d,
+                              drain_call(wfq_drain_cuda, r, c, fault))
+        acc, drop = int(got[6].sum()), int(got[7].sum())
+        if c["fill"] == "full" and not drop:
+            raise AssertionError(f"sq_enqueue {name}: no lane dropped on "
+                                 "rings near full")
+        seen.append(dict(check=name, accepted=acc, dropped=drop))
+
+    # one enqueue captured in a CUDA graph: no host sync on the path, and
+    # the replay bit-identical to the plain version
+    c = QUEUE_CHECKS[0]
+    rings, state, lanes, kw = queue_inputs(c, gen, dev)
+    work = {k: v.clone() for k, v in rings.items()}
+
+    outs = []
+    graph = capture_graph(lambda: outs.append(sq_enqueue_cuda(
+        *(work[k] for k in RING_FIELDS), *state.values(), *lanes.values(),
+        **kw)), 1)
+    out = outs[-1]                    # the captured call's outputs
+    for k in RING_FIELDS:
+        work[k].copy_(rings[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    require_equal("sq_enqueue replayed from a CUDA graph",
+                  list(out[:6]) + [out[6][k] for k in PER_SEG]
+                  + [work[k] for k in RING_FIELDS],
+                  enqueue_call(ref.sq_enqueue_ref, rings, state, lanes, kw))
+    return dict(checks=seen)
+
+
+def queue_bounds(c, lanes, accepted, pending, fault) -> tuple:
+    """The bytes each queue kernel must move, for this run's data: the
+    enqueue reads every lane's key and valid bit (5 B) and writes its
+    queue, vslot, ticket id and accepted flag (13 B); an accepted lane
+    also reads its dst, is_write and prio (9 B) and writes its six ring
+    fields (21 B); plus the tails, heads, pointers and device counts in
+    and out and the per-segment counts.  The drain reads every entry's
+    key (4 B), a pending entry's is_write and tenant (5 B) and with
+    faults its ticket (4 B), and writes its counts."""
+    n, nq, nd = lanes["keys"].numel(), c["nq"], c["nd"]
+    s = len(c["segs"])
+    enq = n * (5 + 13) + accepted * (9 + 21) + nq * 4 * 3 + nd * 4 * 3 \
+        + s * 4 * (4 + 2 * nd)
+    drain = nq * c["depth"] * 4 + pending * (5 + 4 * (fault is not None)) \
+        + 4 * (2 + 8 * nd + 2 * c.get("nt", 1))
+    return enq, drain
+
+
+def queue_times(dev, gen) -> dict:
+    """Each queue kernel timed at the fault phase's shape (and BFS's): eager
+    ms, device ms from a CUDA graph of 20 calls, host us a call, a
+    one-lane (one-entry) floor, the plain version eager (it syncs), and
+    its byte bound.  No PyTorch call routes commands to rings, so there is
+    no library time."""
+    import torch
+    from repro_torch.core.ssd import FaultModel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sq_enqueue import sq_enqueue_cuda
+    from repro_torch.kernels.wfq_drain import wfq_drain_cuda
+
+    out = {"sq_enqueue": {}, "wfq_drain": {}}
+    for shape, c in QUEUE_SHAPES.items():
+        c = dict(c, fill="half")
+        rings, state, lanes, kw = queue_inputs(c, gen, dev)
+        fault = FaultModel(failed_devices=c["failed"], **QUEUE_FAULT)
+        r = [rings[k] for k in RING_FIELDS]
+        args = (*r, *state.values(), *lanes.values())
+        dargs = (rings["sq_key"], rings["sq_is_write"], rings["sq_tenant"],
+                 rings["sq_ticket"])
+        dkw = dict(n_devices=c["nd"], n_tenants=1, fault=fault)
+
+        def enq(fn=sq_enqueue_cuda, a=args):
+            return fn(*a, **kw)
+
+        def drain(fn=wfq_drain_cuda, a=dargs):
+            return fn(*a, **dkw)
+
+        accepted = int(enq()[4].sum())
+        # the drain is timed on these rings, as this enqueue left them
+        pending = int((rings["sq_key"] >= 0).sum())
+        # a one-lane submission on rings of one queue a device, and a
+        # one-entry ring
+        one = [x[:c["nd"], :1].contiguous() for x in r]
+        one_state = [state["sq_tail"][:c["nd"]].contiguous(),
+                     state["sq_head"][:c["nd"]].contiguous(),
+                     torch.zeros_like(state["rr_ptr"]),
+                     state["dev_enqueued"]]
+        one_args = (*one, *one_state, *(v[:1] for v in lanes.values()))
+        one_kw = dict(kw, seg_bounds=((0, 1),))
+        b_enq, b_drain = queue_bounds(c, lanes, accepted, pending, fault)
+        for name, fn, plain, floor, nbytes in (
+                ("sq_enqueue", enq, lambda: enq(ref.sq_enqueue_ref),
+                 lambda: sq_enqueue_cuda(*one_args, **one_kw), b_enq),
+                ("wfq_drain", drain, lambda: drain(ref.wfq_drain_ref),
+                 lambda: wfq_drain_cuda(*(x[:1, :1].contiguous()
+                                          for x in dargs), n_devices=1,
+                                        n_tenants=1, fault=fault), b_drain)):
+            t = dict(ms=cuda_time_ms(fn, iters=50),
+                     device_ms=cuda_graph_time_ms(fn),
+                     host_us=host_us_per_call(fn),
+                     floor_ms=cuda_graph_time_ms(floor),
+                     plain_ms=cuda_time_ms(plain, iters=5),
+                     bound_ms=bound_ms(nbytes),
+                     shape=(f"{c['nq']} x {c['depth']} rings over "
+                            f"{c['nd']} devices (failed {c['failed']}), "
+                            + (f"{sum(c['segs'])} lanes in "
+                               f"{len(c['segs'])} segments"
+                               if name == "sq_enqueue" else "fault model "
+                               "on")))
+            if shape == "faults":
+                out[name].update(t, max_abs_err=0.0, library_ms=None,
+                                 library="none: no PyTorch call routes "
+                                         "commands to rings")
+            else:
+                out[name]["bfs"] = t
+        out["sq_enqueue"].setdefault("accepted", accepted)
+        out["wfq_drain"].setdefault("pending", pending)
+    return out
+
+
+def queue_kernel_phase(dev, seed) -> dict:
+    """The two queue kernels: :func:`queue_checks`, then
+    :func:`queue_times`."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 26)
+    t0 = time.perf_counter()
+    checks = queue_checks(dev, gen)
+    log(f"queue kernels: sq_enqueue and wfq_drain bit-identical to their "
+        f"plain versions in {len(QUEUE_CHECKS)} checks (drain with and "
+        f"without faults, two runs each, one enqueue replayed from a CUDA "
+        f"graph) in {time.perf_counter() - t0:.3f} s: {checks['checks']}")
+    res = queue_times(dev, gen)
+    res["sq_enqueue"]["checks"] = checks["checks"]
+    for name, r in res.items():
+        b = r["bfs"]
+        log(f"kernel {name} at BFS's shape ({b['shape']}): device "
+            f"{b['device_ms']:.6f} ms, eager {b['ms']:.6f} ms, host "
+            f"{b['host_us']:.3f} us, floor {b['floor_ms']:.6f} ms, plain "
+            f"{b['plain_ms']:.6f} ms, bound {b['bound_ms']:.6f} ms")
+    return res
+
+
 def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
     import torch
     from repro_torch.kernels import ref
@@ -757,6 +1054,7 @@ def kernel_phase(dev, seed, S=16384, m=262144, log2_lanes=28):
     del data, slots, off, line_slot
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    results.update(queue_kernel_phase(dev, seed))
     return results
 
 
@@ -1435,17 +1733,22 @@ def profile_table(name, prof, wall):
     # kernels' time
     on_dev = [e for e in ka if e.device_type != torch.autograd.DeviceType.CPU]
     busy = sum(dev_us(e) for e in on_dev) / 1e6
+    # kernel launches issued from the host (the runtime's launch calls)
+    launches = sum(e.count for e in ka if e.device_type
+                   == torch.autograd.DeviceType.CPU
+                   and e.key.startswith(("cudaLaunch", "cuLaunch")))
     (out_dir / f"profile_{name}.txt").write_text(
         ka.table(sort_by="self_cpu_time_total", row_limit=25) + "\n"
         + ka.table(sort_by="self_cuda_time_total", row_limit=25))
     log(f"profile {name}: wall {wall:.6f} s under the profiler, device "
-        f"busy {busy:.6f} s ({busy / wall:.6f} of wall)")
+        f"busy {busy:.6f} s ({busy / wall:.6f} of wall), {launches} kernel "
+        f"launches")
     for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]:
         log(f"  host  {e.key}: {e.self_cpu_time_total / 1e6:.6f} s "
             f"self CPU, {e.count} calls")
     for e in sorted(on_dev, key=lambda e: -dev_us(e))[:8]:
         log(f"  device {e.key}: {dev_us(e) / 1e6:.6f} s, {e.count} calls")
-    return dict(wall_s=wall, device_busy_s=busy)
+    return dict(wall_s=wall, device_busy_s=busy, launches=launches)
 
 
 def profile_runs(g):
@@ -1724,8 +2027,10 @@ def taxi_phase(dev, seed, counters, rows=TAXI_ROWS, wave=TAXI_WAVE,
                 T.scan_column(head, "trip_dist", wavefront=wave)
                 torch.cuda.synchronize()
                 t_prof = time.perf_counter() - t0
-            scans[name.split("_", 1)[1]]["profile"] = profile_table(
+            pt = scans[name.split("_", 1)[1]]["profile"] = profile_table(
                 name, prof, t_prof)
+            log(f"profile {name}: {pt['launches'] / 64:.2f} kernel launches "
+                f"a wavefront over 64 wavefronts")
     del stbl, cold, arr0
     return dict(rows=rows, scan_rows=scan_rows,
                 matching_rows=int(len(rows_np)),
@@ -4275,6 +4580,8 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:77",
     "flash_attention": "src/repro/kernels/flash_attention.py:127",
     "flash_attention_bwd": "src/repro/kernels/ref.py:110",
+    "sq_enqueue": "src/repro/kernels/ops.py:98",
+    "wfq_drain": "src/repro/kernels/ops.py:122",
 }
 
 
@@ -4317,7 +4624,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import (cache_probe, flash_attention,
                                      gather_blocks, paged_attention,
-                                     probe_allocate)
+                                     probe_allocate, sq_enqueue, wfq_drain)
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -4351,8 +4658,10 @@ def main() -> int:
             + (f", library {lib:.6f} ms" if lib is not None else "")
             + (f", device {v['device_ms']:.6f} ms, host "
                f"{v['host_us']:.3f} us a call" if "device_ms" in v else "")
-            + (f", floor (m = 1) {v['floor_ms']:.6f} ms, skewed device "
-               f"{v['skewed_device_ms']:.6f} ms" if "floor_ms" in v else "")
+            + (f", floor (m = 1) {v['floor_ms']:.6f} ms"
+               if "floor_ms" in v else "")
+            + (f", skewed device {v['skewed_device_ms']:.6f} ms"
+               if "skewed_device_ms" in v else "")
             + (f", {v['variant']} kernel" if "variant" in v else "")
             + f", max abs err {v['max_abs_err']}) at {v['shape']}")
     log(f"kernel gather_blocks (line): {kres['gather_blocks']['line_ms']:.6f}"
@@ -4361,7 +4670,9 @@ def main() -> int:
 
     bam = {"probe_allocate": probe_allocate.launches,
            "cache_probe": cache_probe.launches,
-           "gather_blocks": gather_blocks.launches}
+           "gather_blocks": gather_blocks.launches,
+           "sq_enqueue": sq_enqueue.launches,
+           "wfq_drain": wfq_drain.launches}
     attn = {"paged_attention": paged_attention.launches,
             "flash_attention": flash_attention.launches,
             "flash_attention.tc": flash_attention.variant_launches["tc"],

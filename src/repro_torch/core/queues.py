@@ -308,50 +308,30 @@ def service_all(qs: QueueState, fault=None):
     stamp, as :func:`drain_accounting` does.
     """
     dev_t = qs.sq_key.device
-    nd, gsize, depth = qs.n_devices, qs.group_size, qs.depth
+    nd = qs.n_devices
     nt = qs.n_tenants
     pending = qs.sq_key >= 0
-
-    def group_sum(x):
-        return x.reshape(nd, gsize * depth).sum(1, dtype=torch.int32)
-
-    def per_tenant(mask):
-        flat = mask.reshape(-1)
-        out = torch.zeros((nt,), dtype=torch.int32, device=dev_t)
-        return out.index_add_(
-            0, torch.where(flat, qs.sq_tenant.reshape(-1), 0).to(torch.int64),
-            flat.to(torch.int32))
-
-    count = pending.sum(dtype=torch.int32)
-    count_dev = group_sum(pending)
-    count_tenant = per_tenant(pending)
+    # the counts, the fault sums and each command's status are the
+    # closed-form drain's (one kernel on the card)
+    (count, count_dev, count_tenant, _, _, fst) = _ops.wfq_drain(
+        qs.sq_key, qs.sq_is_write, qs.sq_tenant, qs.sq_ticket,
+        n_devices=nd, n_tenants=nt, fault=fault, entry_status=True)
     flat_pend = pending.reshape(-1)
     flat_prio = qs.sq_prio.reshape(-1)
     flat_tenant = qs.sq_tenant.reshape(-1)
     zd = torch.zeros((nd,), dtype=torch.int32, device=dev_t)
     # bamlint: ignore[BAM104] -- fault is static config, not a tensor
     if fault is not None and fault.enabled:
-        dev_of_entry = torch.div(
-            torch.arange(qs.num_queues, dtype=torch.int32, device=dev_t),
-            gsize, rounding_mode="floor")[:, None]
-        ok_e, retries_e, transient_e = fault.command_status(dev_of_entry,
-                                                            qs.sq_ticket)
-        err_e = pending & ~ok_e
-        flat_status = err_e.to(torch.int32).reshape(-1)
-        error_dev = group_sum(err_e)
-        error_tenant = per_tenant(err_e)
-        retries_dev = group_sum(torch.where(pending, retries_e, 0))
-        transient = torch.where(pending, transient_e, 0).sum(
-            dtype=torch.int32)
-        err_writes_dev = group_sum(err_e & qs.sq_is_write)
-        retry_writes_dev = group_sum(
-            torch.where(pending & qs.sq_is_write, retries_e, 0))
-        fkw = dict(error_dev=error_dev, error_tenant=error_tenant,
-                   retries_dev=retries_dev, transient=transient,
-                   err_reads_dev=error_dev - err_writes_dev,
-                   err_writes_dev=err_writes_dev,
-                   retry_reads_dev=retries_dev - retry_writes_dev,
-                   retry_writes_dev=retry_writes_dev)
+        flat_status = fst["status"]
+        fkw = dict(error_dev=fst["errors_dev"],
+                   error_tenant=fst["errors_tenant"],
+                   retries_dev=fst["retry_reads_dev"]
+                   + fst["retry_writes_dev"],
+                   transient=fst["transient_errors"],
+                   err_reads_dev=fst["err_reads_dev"],
+                   err_writes_dev=fst["err_writes_dev"],
+                   retry_reads_dev=fst["retry_reads_dev"],
+                   retry_writes_dev=fst["retry_writes_dev"])
     else:
         flat_status = torch.zeros_like(flat_prio)
         fkw = dict(error_dev=zd, error_tenant=torch.zeros_like(count_tenant),

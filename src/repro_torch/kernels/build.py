@@ -51,6 +51,8 @@ SIGNATURES = {
         [_P] * 6 + [_I] * 8 + [_L, _F, _I] + [_P] * 5),
     "flash_attention_bwd_tc_launch": (
         [_P] * 6 + [_I] * 8 + [_L, _F] + [_P] * 5),
+    "sq_enqueue_launch": [_P] * 15 + [_I] * 6 + [_P, _I, _P, _I, _P, _P],
+    "wfq_drain_launch": [_P] * 4 + [_I] * 5 + [_L, _I, _L, _L, _P, _P, _P],
 }
 # entry points that return something other than a CUDA status (int)
 RESTYPES = {"paged_attention_workspace_floats": _L,
@@ -158,6 +160,17 @@ def lib() -> ctypes.CDLL:
                 fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
+
+
+def check_tensor(kernel: str, name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's C entry assumes of its pointers."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} "
+                         f"tensor of shape {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
 
 
 def check(status: int, what: str) -> None:

@@ -15,6 +15,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
 from repro_torch.kernels.gather_blocks import gather_blocks_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.probe_allocate import probe_allocate_cuda
+from repro_torch.kernels.sq_enqueue import sq_enqueue_cuda
+from repro_torch.kernels.wfq_drain import wfq_drain_cuda
 
 
 def _on(t: torch.Tensor) -> str:
@@ -111,5 +113,30 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                                 return_lse=return_lse)
 
 
-sq_enqueue = _ref.sq_enqueue_ref
-wfq_drain = _ref.wfq_drain_ref
+def sq_enqueue(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant, sq_ticket,
+               sq_tail, sq_head, rr_ptr, dev_enqueued,
+               keys, dst, is_write, prio, valid, *,
+               seg_bounds, n_devices, stripe_blocks, tenant,
+               failed_devices=()):
+    """Fused multi-segment SQ enqueue: the six ring fields are written in
+    place; returns ``(sq_tail, rr_ptr, queue, vslot, accepted, ticket_id,
+    per_seg)``."""
+    fn = _ref.sq_enqueue_ref if _on(keys) == "cpu" else sq_enqueue_cuda
+    return fn(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant, sq_ticket,
+              sq_tail, sq_head, rr_ptr, dev_enqueued,
+              keys, dst, is_write, prio, valid,
+              seg_bounds=seg_bounds, n_devices=n_devices,
+              stripe_blocks=stripe_blocks, tenant=tenant,
+              failed_devices=failed_devices)
+
+
+def wfq_drain(sq_key, sq_is_write, sq_tenant, sq_ticket=None, *,
+              n_devices, n_tenants, fault=None, entry_status=False):
+    """Closed-form drain accounting over the pending ring entries:
+    ``(count, count_dev, count_tenant, reads_dev, writes_dev, fstats)``
+    (``fstats["status"]`` each entry's status with ``entry_status`` and an
+    enabled fault model)."""
+    fn = _ref.wfq_drain_ref if _on(sq_key) == "cpu" else wfq_drain_cuda
+    return fn(sq_key, sq_is_write, sq_tenant, sq_ticket,
+              n_devices=n_devices, n_tenants=n_tenants, fault=fault,
+              entry_status=entry_status)

@@ -8,8 +8,9 @@ yardstick the kernels are held against on the card);
 plain versions of the flash forward with its log-sum-exp and of the flash
 backward kernel (``flash_attention_bwd_tc_ref`` the same with the bf16
 rounding points of its tensor-core variant); ``sq_enqueue_ref`` and
-``wfq_drain_ref`` (with its fault accounting) were never Pallas kernels
-and stay plain torch on every device.
+``wfq_drain_ref`` (with its fault accounting), jnp graphs in the
+reference and never Pallas kernels, are the plain versions of the two
+queue kernels.
 """
 from __future__ import annotations
 
@@ -453,13 +454,16 @@ def sq_enqueue_ref(sq_key, sq_dst, sq_is_write, sq_prio, sq_tenant,
 
 
 def wfq_drain_ref(sq_key, sq_is_write, sq_tenant, sq_ticket=None, *,
-                  n_devices, n_tenants, fault=None):
+                  n_devices, n_tenants, fault=None, entry_status=False):
     """Closed-form drain accounting: ``(count, count_dev, count_tenant,
     reads_dev, writes_dev, fstats)`` as order-free reductions over the
     pending SQ entries.  ``fstats`` holds the fault fields of the
     ``DrainReceipt``: with an enabled ``fault`` each pending command's
     retry loop is resolved from its ``(device, sq_ticket)`` stamp, else
-    it is empty (the receipt's fault fields stay None)."""
+    it is empty (the receipt's fault fields stay None).  With
+    ``entry_status`` and an enabled ``fault`` it also holds ``status``,
+    each ring entry's completion status flattened in ring order (1: the
+    pending command errored, else 0)."""
     nq, depth = sq_key.shape
     gsize = nq // n_devices
     dev_t = sq_key.device
@@ -499,6 +503,8 @@ def wfq_drain_ref(sq_key, sq_is_write, sq_tenant, sq_ticket=None, *,
                 torch.where(pending & sq_is_write, retries_e, 0)),
             transient_errors=torch.where(pending, transient_e, 0).sum(
                 dtype=torch.int32))
+        if entry_status:
+            fstats["status"] = err.to(torch.int32).reshape(-1)
     else:
         fstats = {}
     return count, count_dev, count_tenant, reads_dev, writes_dev, fstats

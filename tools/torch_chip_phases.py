@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
 """Run chosen model phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/torch_chip_phases.py [attn] [attn_bwd] [serve:ARCH ...]
-        [dvf:ARCH ...] [train_vs_cpu] [train:gemma3-1b] [train_ckpt]
-        [mesh_train:gemma3-1b] [flash_decode_shards] [mesh_tp]
-        [mesh_fsdp] [dryrun] [--seed 0] [--profile]
+    python3 tools/torch_chip_phases.py [queues] [faults] [taxi] [runtime] [attn]
+        [attn_bwd] [serve:ARCH ...] [dvf:ARCH ...] [train_vs_cpu]
+        [train:gemma3-1b] [train_ckpt] [mesh_train:gemma3-1b]
+        [flash_decode_shards] [mesh_tp] [mesh_fsdp] [dryrun] [--seed 0]
+        [--profile] [--src DIR]
 
-``attn`` runs the attention kernel phase (every flash and paged case
+``queues`` runs the two queue kernels' checks and times
+(``chip_smoke.queue_kernel_phase``: ``sq_enqueue`` and ``wfq_drain`` bit
+for bit against their plain versions), ``faults`` the fault-injected
+rounds (fused and legacy, then with readahead; card against CPU, bit for
+bit), ``taxi`` the taxi queries and scans (``--profile`` traces 64
+wavefronts of the demand and readahead scans and prints the kernel
+launches a wavefront) and ``runtime`` the multi-tenant runtime phase
+(``--profile`` traces 8 partitioned rounds), each BaM kernel's
+launches counted on each and required, ``attn`` the attention kernel
+phase (every flash and paged case
 against its plain version), ``attn_bwd`` the flash backward's (and the
 forward's log-sum-exp) against their plain versions, timed beside SDPA's
 backward, ``train_vs_cpu``, ``train:gemma3-1b`` (``--profile`` traces one
@@ -29,20 +39,27 @@ serving phase of
 ``dvf:ARCH`` a decode-vs-forward phase of ``chip_smoke.DVF`` in float32
 (``--profile`` traces one more forward),
 in the order given, each with the same code and checks as in the full
-script (for example ``serve:hymba-1.5b dvf:xlstm-1.3b``).  It skips the BaM phases and the qwen2.5-14b serving phase, so a
-change to one model path can be checked on the card in minutes.  Prints
+script (for example ``serve:hymba-1.5b dvf:xlstm-1.3b``).  It skips the
+BFS/CC and taxi phases, the BaM kernel phase and the qwen2.5-14b serving
+phase, so a change to one path can be checked on the card in minutes.
+``--src DIR`` runs the phases of another checkout (its ``chip_smoke.py``
+and ``src/``, for example a parent unpacked with ``git archive``), so two
+trees can be run in turns in one call.  Prints
 the card's name and power limit first; results go to
 ``chiprun_out/chip_phases.json``.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import pathlib
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+BAM_KERNELS = ("probe_allocate", "cache_probe", "gather_blocks",
+               "sq_enqueue", "wfq_drain")
 
 
 def main() -> int:
@@ -50,15 +67,26 @@ def main() -> int:
     ap.add_argument("phases", nargs="+")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--src", default=None,
+                    help="run the phases of the checkout at SRC (its "
+                         "chip_smoke.py and src/), e.g. a parent unpacked "
+                         "with git archive, to compare two trees in turns")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("torch_chip_phases: no CUDA device", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    root = pathlib.Path(args.src).resolve() if args.src else ROOT
+    sys.path[:0] = [str(root), str(root / "src")]
     import chip_smoke as cs
-    from repro_torch.kernels import build, flash_attention, paged_attention
+    from repro_torch.kernels import (build, flash_attention,
+                                     paged_attention)
+
+    # the BaM kernels the checkout has (an older one lacks the queue ones)
+    bam = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}").launches for name in BAM_KERNELS
+        if (root / "src" / "repro_torch" / "kernels" / f"{name}.py").exists()}
 
     t0 = time.perf_counter()
     cs.log(cs.nvidia_smi())
@@ -73,7 +101,19 @@ def main() -> int:
     out = {}
     for phase in args.phases:
         t = time.perf_counter()
-        if phase == "attn":
+        if phase == "queues":
+            out[phase] = cs.queue_kernel_phase(dev, args.seed)
+        elif phase == "faults":
+            out[phase] = cs.fault_phase(dev, args.seed, bam)
+            out["faults_readahead"] = cs.fault_phase(dev, args.seed, bam,
+                                                     readahead=True)
+        elif phase == "taxi":
+            out[phase] = cs.taxi_phase(dev, args.seed, bam,
+                                       profile=args.profile)
+        elif phase == "runtime":
+            out[phase] = cs.runtime_phase(dev, args.seed, bam,
+                                          profile=args.profile)
+        elif phase == "attn":
             out[phase] = cs.attention_kernel_phase(dev, args.seed)
         elif phase == "attn_bwd":
             out[phase] = cs.attention_bwd_phase(dev, args.seed)
@@ -142,7 +182,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_phases.json").write_text(json.dumps(
+    name = "chip_phases.json" if root == ROOT \
+        else f"chip_phases_{root.name}.json"
+    (out_dir / name).write_text(json.dumps(
         dict(nvidia_smi=cs.nvidia_smi(), phases=out), indent=1,
         default=str))
     cs.log(f"torch_chip_phases: done in {time.perf_counter() - t0:.3f} s")
